@@ -1,0 +1,343 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch port's main path on one NVIDIA GPU and check it.
+
+Run from the repository root with one CUDA card visible:
+
+    python3 chip_smoke.py
+
+It imports only ``torch``, numpy and ``torchsparsegradutils_tpu_torch``
+(nothing of JAX), and runs five phases; any failure raises and the
+script exits non-zero without its last line:
+
+1. prints the card's name and power limit (``nvidia-smi``), builds the
+   CUDA kernels of ``torchsparsegradutils_tpu_torch/csrc`` and prints the
+   build time;
+2. holds each kernel against its plain PyTorch version on the card at
+   the cfd2 shapes (N = 123,440 rows, the 25-offset stencil of
+   ``bench.py``, p = 128) in float32, bfloat16 and float64;
+3. runs ``sparse_mm`` forward and backward through the public entry
+   point on that stencil, on a hybrid pattern at 85 % DIA coverage and
+   at p = 16, checks outputs and gradients against the generic
+   ``backend="xla"`` path on the card and a small case against a dense
+   product, and checks that each kernel's launch counter rose during
+   each run;
+4. times the chained forward and forward+backward steps and each
+   kernel, its plain version and one PyTorch library call that computes
+   the same function, with CUDA events, and prints them as a
+   ``{"kernels": [...]}`` line;
+5. prints ``{"ok": true, "device": {...}}`` as the last line.
+
+Without a CUDA device it exits 1 and prints no result.
+"""
+
+import json
+import subprocess
+import sys
+import time
+
+N = 123_440           # cfd2 rows (bench.py)
+P = 128               # RHS width (bench.py)
+NNZ_HYBRID = 3_087_898
+STENCIL_OFFSETS = sorted({0, 1, -1, 2, -2, 3, -3, 49, -49, 50, -50, 51,
+                          -51, 2401, -2401, 2449, -2449, 2450, -2450,
+                          2451, -2451, 2499, -2499, 2500, -2500})
+HBM_BYTES_S = 3.35e12   # H100 SXM data sheet
+F32_FLOP_S = 67e12      # H100 SXM data sheet, float32 outside tensor cores
+TOL = {"float32": (1e-5, 1e-5), "bfloat16": (2e-2, 1e-5),
+       "float64": (1e-12, 1e-12)}  # (rtol, atol as a fraction of max|ref|)
+
+
+def smi_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60)
+    return out.stdout.strip().splitlines()[0]
+
+
+def close(name, got, ref, dtype_name):
+    """Max |got - ref| after checking |got - ref| <= atol + rtol |ref|."""
+    import torch
+    rtol, atol_frac = TOL[dtype_name]
+    got, ref = got.double(), ref.double()
+    if got.shape != ref.shape or not torch.isfinite(got).all():
+        raise AssertionError(f"{name}: shape {tuple(got.shape)} vs "
+                             f"{tuple(ref.shape)} or non-finite values")
+    err = (got - ref).abs()
+    atol = atol_frac * ref.abs().max().item()
+    bad = err > atol + rtol * ref.abs()
+    if bad.any():
+        raise AssertionError(
+            f"{name} [{dtype_name}]: {int(bad.sum())} elements off, max "
+            f"abs err {err.max().item():.3e} (rtol {rtol}, atol {atol:.3e})")
+    print(f"  {name} [{dtype_name}]: max abs err {err.max().item():.3e} "
+          f"(rtol {rtol}, atol {atol:.3e}) ok")
+    return err.max().item()
+
+
+def time_ms(fn, reps=20, warmup=3):
+    """Mean device time of ``fn`` over ``reps`` back-to-back calls."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def valid_cells(offsets, n, m):
+    """Grid cells (r, k) with 0 <= r + off_k < m: the FMAs per column."""
+    return sum(max(0, min(n, m - o) - max(0, -o)) for o in offsets)
+
+
+def bound(nbytes, flops):
+    t_bytes, t_ops = nbytes / HBM_BYTES_S, flops / F32_FLOP_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def profile_step(label, step, steps=5, top=8):
+    """Device time by kernel over ``steps`` chained steps (torch.profiler),
+    and the device's busy share of the window's wall time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            step()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    # kernel entries only: the op that launched a kernel repeats its time
+    rows = [(e.key, e.self_device_time_total / steps)
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA
+            and e.self_device_time_total > 0]
+    busy = sum(t for _, t in rows)
+    rows.sort(key=lambda r: -r[1])
+    print(json.dumps({f"profile_{label}": {
+        "device_us_per_step": busy, "wall_us_per_step": wall_us / steps,
+        "busy_share": busy * steps / wall_us,
+        "top": [[k[:60], t] for k, t in rows[:top]]}}))
+
+
+def counters():
+    from torchsparsegradutils_tpu_torch.kernels.dia import (sddmm_core,
+                                                            spmm_core)
+    from torchsparsegradutils_tpu_torch.kernels.window_gather import (
+        window_gather)
+    return {"dia_spmm": spmm_core, "dia_sddmm": sddmm_core,
+            "gather": window_gather}
+
+
+def fwd_bwd(A, B, G, backend):
+    import torch
+    from torchsparsegradutils_tpu_torch import sparse_mm
+    v = A.values.detach().clone().requires_grad_(True)
+    b = B.detach().clone().requires_grad_(True)
+    out = sparse_mm(A.with_data(v), b, backend=backend)
+    gv, gb = torch.autograd.grad(out, (v, b), G)
+    return out, gv, gb
+
+
+def drive(label, A, B, G):
+    """One fwd+bwd through the public entry with the counters set to 0
+    just before and read just after; then the generic path as reference."""
+    import torch
+    for fn in counters().values():
+        fn.launches = 0
+    out, gv, gb = fwd_bwd(A, B, G, "auto")
+    torch.cuda.synchronize()
+    launches = {k: fn.launches for k, fn in counters().items()}
+    print(f"  {label}: launches {launches}")
+    missing = [k for k, c in launches.items() if c == 0]
+    if missing:
+        raise AssertionError(f"{label}: kernels {missing} never launched")
+    ref = fwd_bwd(A, B, G, "xla")
+    for name, got, r in zip(("out", "gradA", "gradB"), (out, gv, gb), ref):
+        close(f"{label} {name} vs generic path", got, r, "float32")
+    return launches
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    from torchsparsegradutils_tpu_torch import sparse_mm
+    from torchsparsegradutils_tpu_torch.kernels import _build
+    from torchsparsegradutils_tpu_torch.kernels.dia import (
+        build_dia_plan, sddmm_core, sddmm_core_plain, spmm_core,
+        spmm_core_plain, values_to_grid)
+    from torchsparsegradutils_tpu_torch.kernels.window_gather import (
+        window_gather, window_gather_plain)
+    from torchsparsegradutils_tpu_torch.utils.random_sparse import (
+        hybrid_sparse, stencil_sparse)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    card = smi_line()
+    print(f"card: {card}")
+    print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
+          f"{torch.cuda.get_device_name(0)}")
+
+    # ---- phase 1: build -------------------------------------------------
+    info = _build.build()
+    _build.libraries()
+    print(f"phase 1: kernels built in {info['seconds']:.1f} s "
+          f"({info['dir']})")
+    for name, log in info["logs"].items():
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"  {name}: {line.strip()}")
+
+    # ---- phase 2: each kernel against its plain version -------------------
+    print("phase 2: kernels vs plain versions at the cfd2 shapes")
+    gen = torch.Generator().manual_seed(0)
+    A = stencil_sparse((N, N), STENCIL_OFFSETS, generator=gen, device=dev)
+    plan = build_dia_plan(A.row_sa(), A.col_sa(), N, N)
+    maps = plan.maps(dev)
+    offs = plan.geo.offsets_on(dev)
+    offs_t = plan.geo.T.offsets_on(dev)
+    B = torch.randn(N, P, generator=gen).to(dev)
+    G = torch.randn(N, P, generator=gen).to(dev)
+    grid = values_to_grid(plan, A.values)
+    err = {}
+    for dt in (torch.float32, torch.bfloat16, torch.float64):
+        name = str(dt).removeprefix("torch.")
+        g, b, gg = grid.to(dt), B.to(dt), G.to(dt)
+        gt = plan.geo.shift(g)
+        e1 = close("dia_spmm A@B", spmm_core(offs, g, b),
+                   spmm_core_plain(offs, g, b), name)
+        e2 = close("dia_spmm A^T G", spmm_core(offs_t, gt, gg),
+                   spmm_core_plain(offs_t, gt, gg), name)
+        e3 = close("dia_sddmm", sddmm_core(offs, gg, b),
+                   sddmm_core_plain(offs, gg, b), name)
+        vals = A.values.to(dt)
+        for what, src, idx in (("values->grid", vals, maps["src_of_grid"]),
+                               ("grid->values", g.reshape(-1), maps["pos"])):
+            got = window_gather(src, idx)
+            if not torch.equal(got, window_gather_plain(src, idx)):
+                raise AssertionError(f"gather {what} [{name}] not exact")
+            print(f"  gather {what} [{name}]: exact")
+        if dt == torch.float32:
+            err = {"dia_spmm": max(e1, e2), "dia_sddmm": e3, "gather": 0.0}
+
+    # ---- phase 3: the main path --------------------------------------------
+    print("phase 3: sparse_mm fwd+bwd through the public entry point")
+    small = stencil_sparse((512, 512), [-40, -3, 0, 2, 40], generator=gen,
+                           device=dev)
+    Bs = torch.randn(512, 8, generator=gen).to(dev)
+    close("small stencil vs dense f64", sparse_mm(small, Bs),
+          small.todense().double() @ Bs.double(), "float32")
+    launches = drive("stencil p=128", A, B, G)
+    H = hybrid_sparse((N, N), STENCIL_OFFSETS, NNZ_HYBRID, dia_coverage=0.85,
+                      generator=gen, device=dev)
+    drive("hybrid85 p=128", H, B, G)
+    B16, G16 = B[:, :16].contiguous(), G[:, :16].contiguous()
+    drive("stencil p=16", A, B16, G16)
+
+    # ---- phase 4: timing ---------------------------------------------------
+    print("phase 4: timing")
+    eps = 1e-6
+
+    def chain_fwd(A, B):
+        state = {"b": B.clone()}
+
+        def step():
+            with torch.no_grad():
+                state["b"] = state["b"] + eps * sparse_mm(A, state["b"])
+        return step
+
+    def chain_step(A, B, G):
+        state = {"v": A.values.detach().clone(), "b": B.clone()}
+
+        def step():
+            v = state["v"].requires_grad_(True)
+            b = state["b"].requires_grad_(True)
+            out = sparse_mm(A.with_data(v), b)
+            gv, gb = torch.autograd.grad(out, (v, b), G)
+            state["v"] = (v + eps * gv).detach()
+            state["b"] = (b + eps * gb).detach()
+        return step
+
+    torch.cuda.reset_peak_memory_stats()
+    base_mib = torch.cuda.memory_allocated() / 2**20
+    steps = {
+        "stencil_fwd_ms": time_ms(chain_fwd(A, B), reps=50),
+        "stencil_fwd_bwd_ms": time_ms(chain_step(A, B, G), reps=50),
+        "stencil_fwd_bwd_peak_extra_mib":
+            torch.cuda.max_memory_allocated() / 2**20 - base_mib,
+        "hybrid85_fwd_bwd_ms": time_ms(chain_step(H, B, G), reps=50),
+        "stencil_p16_fwd_bwd_ms": time_ms(chain_step(A, B16, G16), reps=50),
+    }
+    print(json.dumps({"main_path": steps, "card": card}))
+    profile_step("stencil_fwd_bwd_step", chain_step(A, B, G))
+    profile_step("hybrid85_fwd_bwd_step", chain_step(H, B, G))
+
+    es = 4
+    n, m, K = N, N, plan.K
+    cells = valid_cells(plan.offsets.tolist(), n, m)
+    csr = torch.sparse_csr_tensor(
+        torch.from_numpy(A.indptr_np().astype("int64")).to(dev),
+        A.cols_t(), A.values, (n, m))
+    offs_list = plan.offsets.tolist()
+    vals_pad = torch.cat([A.values, A.values.new_zeros(1)])
+    idx_pad = torch.where(maps["src_of_grid"] >= 0, maps["src_of_grid"],
+                          A.nnz)
+    rows = []
+    spec = [
+        ("dia_spmm", "torchsparsegradutils_tpu_torch/csrc/dia_spmm.cu",
+         "torchsparsegradutils_tpu/kernels/dia_mxu.py:838 (K1 "
+         "spmm_core_mxu) and torchsparsegradutils_tpu/kernels/dia.py:477 "
+         "(K4 _spmm_core_pallas)",
+         lambda: spmm_core(offs, grid, B),
+         lambda: spmm_core_plain(offs_list, grid, B),
+         lambda: torch.sparse.mm(csr, B),
+         bound((n * K + m * P + n * P) * es + K * 8, 2 * cells * P)),
+        ("dia_sddmm", "torchsparsegradutils_tpu_torch/csrc/dia_sddmm.cu",
+         "torchsparsegradutils_tpu/kernels/dia_mxu.py:974 (K2 "
+         "sddmm_core_mxu) and torchsparsegradutils_tpu/kernels/dia.py:538 "
+         "(K5 _dia_sddmm_pallas)",
+         lambda: sddmm_core(offs, G, B),
+         lambda: sddmm_core_plain(offs_list, G, B),
+         lambda: torch.sparse.sampled_addmm(csr, G, B.t(), beta=0.0),
+         bound((n * P + m * P + n * K) * es + K * 8, 2 * cells * P)),
+        ("gather", "torchsparsegradutils_tpu_torch/csrc/gather.cu",
+         "torchsparsegradutils_tpu/kernels/window_gather.py:402 (K3 "
+         "_window_gather_impl)",
+         lambda: window_gather(A.values, maps["src_of_grid"]),
+         lambda: window_gather_plain(A.values, maps["src_of_grid"]),
+         lambda: torch.index_select(vals_pad, 0, idx_pad),
+         bound(n * K * 8 + A.nnz * es + n * K * es, 0)),
+    ]
+    for name, source, replaces, kern, plain, lib, (b_ms, b_by) in spec:
+        rows.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches[name],
+            "max_abs_err": err[name], "ms": time_ms(kern),
+            "plain_ms": time_ms(plain), "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": time_ms(lib)})
+    print(f"card: {card}")
+    print(json.dumps({"kernels": rows}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    t0 = time.perf_counter()
+    rc = main()
+    print(f"chip_smoke: {time.perf_counter() - t0:.1f} s", file=sys.stderr)
+    sys.exit(rc)

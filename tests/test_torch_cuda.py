@@ -1,0 +1,144 @@
+"""PyTorch port on the card: the CUDA kernels against their plain
+versions at awkward shapes, the main path against the CPU, and the
+wrappers' refusals.
+
+Every test needs an NVIDIA GPU and skips without one.  The file imports
+nothing of JAX, so the card's machine, which has no JAX, runs it without
+``tests/conftest.py``:
+
+    python -m pytest --noconftest -q tests/test_torch_cuda.py
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from torchsparsegradutils_tpu_torch import sddmm, sparse_mm
+from torchsparsegradutils_tpu_torch.kernels import _build
+from torchsparsegradutils_tpu_torch.kernels.dia import (sddmm_core,
+                                                        sddmm_core_plain,
+                                                        spmm_core,
+                                                        spmm_core_plain)
+from torchsparsegradutils_tpu_torch.kernels.window_gather import (
+    window_gather, window_gather_plain)
+from torchsparsegradutils_tpu_torch.utils.random_sparse import (
+    hybrid_sparse, stencil_sparse)
+
+pytestmark = pytest.mark.cuda
+
+# (rtol, atol as a fraction of max|ref|): sums run in another order
+TOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (2e-2, 1e-5),
+       torch.float64: (1e-12, 1e-12)}
+DTYPES = list(TOL)
+SHAPES = [(1000, 1000, 1, [-3, 0, 3]),
+          (777, 1200, 33, [-500, -1, 0, 7, 900]),
+          (1300, 600, 130, [-1000, -5, 0, 2, 599]),
+          (2000, 2000, 5, list(range(-128, 128)))]       # K = 256
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    return torch.device("cuda")
+
+
+def close(got, ref, dtype):
+    rtol, frac = TOL[dtype]
+    ref = ref.double().cpu()
+    torch.testing.assert_close(got.double().cpu(), ref, rtol=rtol,
+                               atol=frac * ref.abs().max().item())
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("n,m,p,offsets", SHAPES)
+def test_dia_kernels_match_plain(dev, dtype, n, m, p, offsets):
+    g = torch.Generator().manual_seed(n + p)
+    K = len(offsets)
+    offs = torch.tensor(offsets, device=dev)
+    # values in the out-of-range cells too: both versions must skip them
+    grid = torch.randn(n, K, generator=g).to(dev, dtype)
+    B = torch.randn(m, p, generator=g).to(dev, dtype)
+    X = torch.randn(n, p, generator=g).to(dev, dtype)
+    before = spmm_core.launches, sddmm_core.launches
+    close(spmm_core(offs, grid, B), spmm_core_plain(offs, grid, B), dtype)
+    close(sddmm_core(offs, X, B), sddmm_core_plain(offs, X, B), dtype)
+    torch.cuda.synchronize()
+    assert (spmm_core.launches, sddmm_core.launches) == (before[0] + 1,
+                                                         before[1] + 1)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_gather_matches_plain_exactly(dev, dtype):
+    rng = np.random.default_rng(1)
+    src = torch.from_numpy(rng.standard_normal(70_001)).to(dev, dtype)
+    idx = rng.integers(-1, 70_001, 250_000)            # -1 marks holes
+    idx = torch.from_numpy(idx).to(dev)
+    before = window_gather.launches
+    got = window_gather(src, idx)
+    assert torch.equal(got, window_gather_plain(src, idx))
+    assert window_gather.launches == before + 1
+
+
+@pytest.mark.parametrize("kind", ["stencil", "hybrid"])
+def test_sparse_mm_on_card_matches_cpu(dev, kind):
+    if kind == "stencil":
+        A = stencil_sparse((3000, 2500), [-700, -1, 0, 1, 40], device="cpu")
+    else:
+        A = hybrid_sparse((3000, 3000), [-50, -1, 0, 1, 50], 14_000,
+                          dia_coverage=0.85, device="cpu")
+    n, m = A.shape
+    g = torch.Generator().manual_seed(2)
+    B, G = torch.randn(m, 24, generator=g), torch.randn(n, 24, generator=g)
+    X = torch.randn(n, 24, generator=g)
+
+    def run(device):
+        v = A.values.to(device).requires_grad_(True)
+        b = B.to(device).requires_grad_(True)
+        out = sparse_mm(A.with_data(v), b)
+        gv, gb = torch.autograd.grad(out, (v, b), G.to(device),
+                                     create_graph=True)
+        hv, hb = torch.autograd.grad((gv ** 2).sum() + (gb ** 2).sum(),
+                                     (v, b))
+        s = sddmm(A.with_data(v), X.to(device), b).values
+        return out, gv, gb, hv, hb, s
+
+    for got, ref in zip(run(dev), run("cpu")):
+        close(got.detach(), ref.detach(), torch.float32)
+
+
+def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
+    offs = torch.tensor([0, 1], device=dev)
+    x = torch.ones(8, 2, device=dev)
+    with pytest.raises(ValueError, match="float32, bfloat16 or float64"):
+        spmm_core(offs, x.half(), x.half())
+    with pytest.raises(ValueError, match="contiguous"):
+        sddmm_core(offs, x.t(), x.t())
+    with pytest.raises(ValueError, match="int64"):
+        spmm_core(offs.int(), x, x)
+    with pytest.raises(ValueError, match="K <= 256"):
+        spmm_core(torch.arange(300, device=dev), torch.ones(8, 300,
+                                                            device=dev), x)
+    with pytest.raises(ValueError, match="CUDA device"):
+        window_gather(x[:, 0], offs.cpu())
+    before = spmm_core.launches
+    assert spmm_core(offs, x, x[:, :0]).shape == (8, 0)
+    assert spmm_core.launches == before          # nothing to launch
+
+
+def test_wrappers_raise_on_cuda_when_the_build_is_missing(dev, monkeypatch,
+                                                          tmp_path):
+    monkeypatch.setattr(_build, "BUILD_ROOT", tmp_path / "none")
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    _build.libraries.cache_clear()
+    try:
+        offs = torch.zeros(1, dtype=torch.int64, device=dev)
+        x = torch.ones(4, 1, device=dev)
+        for call in (lambda: spmm_core(offs, x, x),
+                     lambda: sddmm_core(offs, x, x),
+                     lambda: window_gather(x[:, 0], offs)):
+            with pytest.raises(RuntimeError, match="nvcc"):
+                call()
+    finally:
+        _build.libraries.cache_clear()

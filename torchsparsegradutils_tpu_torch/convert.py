@@ -1,0 +1,69 @@
+"""Carry a sparse matrix between this package and plain arrays.
+
+``from_arrays`` builds a container from numpy (or anything numpy can
+read): a matrix exported from the JAX package with ``np.asarray`` on its
+index and value arrays comes across unchanged, so both packages compute
+on the same matrix.  ``to_arrays`` goes back.
+
+Example:
+    >>> import numpy as np
+    >>> from torchsparsegradutils_tpu_torch import from_arrays, to_arrays
+    >>> A = from_arrays("csr", np.array([0, 1, 2]), np.array([1, 0]),
+    ...                 np.array([2.0, 3.0], np.float32), (2, 2),
+    ...                 device="cpu")
+    >>> to_arrays(A)[0], A.todense().tolist()
+    ('csr', [[0.0, 2.0], [3.0, 0.0]])
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .types import SparseCOO, SparseCSR
+
+__all__ = ["from_arrays", "to_arrays"]
+
+
+def from_arrays(layout: str, idx0, idx1, data, shape, *, device="cuda"):
+    """Container from index and value arrays.
+
+    Args:
+      layout: ``"coo"`` (``idx0`` rows, ``idx1`` columns) or ``"csr"``
+        (``idx0`` row pointers, ``idx1`` column indices).
+      data: ``(*batch, nnz)`` values; float32, float64 or bfloat16 arrays
+        keep their dtype.
+      shape: ``(*batch, n, m)``.
+      device: where the values go.
+    """
+    if not isinstance(data, torch.Tensor):
+        arr = np.asarray(data)
+        if arr.dtype.name == "bfloat16":   # ml_dtypes arrays from JAX
+            data = torch.from_numpy(arr.astype(np.float32)).to(torch.bfloat16)
+        else:
+            data = torch.from_numpy(np.array(arr))
+    data = data.to(device)
+    idx0, idx1 = np.asarray(idx0), np.asarray(idx1)
+    if layout == "coo":
+        return SparseCOO(idx0, idx1, data, shape)
+    if layout == "csr":
+        return SparseCSR(idx0, idx1, data, shape)
+    raise ValueError(f"from_arrays: unknown layout {layout!r}")
+
+
+def to_arrays(A):
+    """``(layout, idx0, idx1, data, shape)`` of a container, all numpy.
+
+    The inverse of :func:`from_arrays`.  numpy has no bfloat16, so
+    bfloat16 values come back as float32 (exactly).
+    """
+    vals = A.values.detach()
+    if vals.dtype == torch.bfloat16:
+        vals = vals.float()
+    data = vals.cpu().numpy()
+    if isinstance(A, SparseCOO):
+        return "coo", A.rows(), A.cols(), data, A.shape
+    if isinstance(A, SparseCSR):
+        return "csr", A.indptr_np(), A.cols(), data, A.shape
+    raise TypeError(f"to_arrays: expected SparseCOO or SparseCSR, got "
+                    f"{type(A).__name__}")

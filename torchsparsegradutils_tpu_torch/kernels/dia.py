@@ -1,0 +1,551 @@
+"""Diagonal-structured (DIA) execution of SpMM and SDDMM.
+
+Port of ``torchsparsegradutils_tpu/kernels/dia.py``.  Stencil and FEM
+operators, banded factors and encoder outputs are unions of a few
+diagonals.  Their entries on the selected diagonals live in an
+``(n, K)`` value grid, and every product becomes K shifted dense rows:
+
+    out[r, :]    = Σ_k  grid[r, k] · B[r + off_k, :]          (SpMM)
+    d_grid[r, k] = Σ_p  X[r, p] · Y[r + off_k, p]             (SDDMM)
+    (Aᵀ G)[c, :] = Σ_k  grid[c - off_k, k] · G[c - off_k, :]  (transpose)
+
+The transpose is the SpMM again, over the negated offsets and a
+column-shifted grid (:meth:`DiaGeometry.shift`).
+
+Three hand-written CUDA kernels carry the engine, each beside its plain
+PyTorch version:
+
+* :func:`spmm_core` (``csrc/dia_spmm.cu``) and :func:`sddmm_core`
+  (``csrc/dia_sddmm.cu``), here;
+* :func:`~.window_gather.window_gather` (``csrc/gather.cu``), which moves
+  values between CSR order and the grid.
+
+On CPU tensors the wrappers run the plain versions; on CUDA tensors they
+launch the kernels or raise.  :class:`DiaSpmmCore` and
+:class:`DiaSddmmCore` make the two cores differentiable, each backward
+calling the Functions again, so higher derivatives work.
+
+A plan is built on the host from the pattern (numpy, as in the JAX
+package) and cached on the pattern's content hash.  The entries off the
+selected diagonals of a hybrid pattern form a residual, which takes the
+JAX package's gather + segment-sum branch in plain PyTorch
+(``index_select`` + ``index_add``).
+
+Example:
+    >>> import torch
+    >>> from torchsparsegradutils_tpu_torch import sparse_mm
+    >>> from torchsparsegradutils_tpu_torch.utils.random_sparse import (
+    ...     stencil_sparse)
+    >>> A = stencil_sparse((64, 64), [-8, 0, 8], device="cpu")
+    >>> B = torch.ones(64, 4)
+    >>> out = sparse_mm(A, B, backend="dia")
+    >>> bool(torch.allclose(out, A.todense() @ B, atol=1e-5))
+    True
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from functools import lru_cache
+from typing import Optional
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from . import _build
+from .window_gather import WindowGather
+
+MAX_DIAGS = 256          # offsets above this: not DIA-structured
+DIA_MAX_EXPAND = 4.0     # grid cells (K*n) must be <= this x covered nnz
+HYBRID_MIN_COVER = 0.7   # diagonals must cover >= this nnz fraction
+MAX_COL_BLOCKS = 65535   # CUDA grid y limit: spmm_core takes p <= 32 x this
+
+
+class DiaGeometry:
+    """The diagonals of a DIA operator: sorted ``offsets`` (numpy int64),
+    ``n`` output rows (grid rows) and ``m`` source rows.
+
+    ``T`` is the transpose's geometry: offsets ``-offsets`` reversed,
+    ``m`` output rows and ``n`` source rows.
+    """
+
+    def __init__(self, offsets: np.ndarray, n: int, m: int,
+                 transpose: "DiaGeometry" = None):
+        self.offsets = np.asarray(offsets, np.int64)
+        self.n, self.m = int(n), int(m)
+        self._T = transpose
+        self._dev = {}
+
+    @property
+    def K(self) -> int:
+        return len(self.offsets)
+
+    @property
+    def T(self) -> "DiaGeometry":
+        if self._T is None:
+            self._T = DiaGeometry(-self.offsets[::-1], self.m, self.n,
+                                  transpose=self)
+        return self._T
+
+    def offsets_on(self, device) -> torch.Tensor:
+        device = torch.device(device)
+        t = self._dev.get(device)
+        if t is None:
+            t = self._dev[device] = torch.from_numpy(
+                self.offsets.copy()).to(device)
+        return t
+
+    def shift(self, grid: torch.Tensor) -> torch.Tensor:
+        """``(n, K)`` grid -> the transpose's ``(m, K)`` grid,
+        ``gT[c, kT] = grid[c - off_k, k]`` with ``kT = K - 1 - k``
+        (0 where ``c - off_k`` is outside ``[0, n)``).
+
+        One zero pad of the rows and K column slices, as the JAX package
+        does outside its kernels (``kernels/dia.py:_transpose_grid``);
+        differentiable through PyTorch's own ops.
+        """
+        offs = self.offsets
+        lo = max(0, int(offs.max()))
+        hi = max(0, self.m - self.n - int(offs.min()))
+        gp = F.pad(grid, (0, 0, lo, hi))
+        cols = [gp[lo - int(off):lo - int(off) + self.m, k]
+                for k, off in reversed(list(enumerate(offs)))]
+        return torch.stack(cols, dim=1)
+
+
+@dataclass(frozen=True, eq=False)
+class DiaPlan:
+    """Execution plan for a (possibly hybrid) diagonal-structured matrix.
+
+    Entries on the selected diagonals live in the ``(n, K)`` value grid;
+    the rest (``resid_*``, at most ``1 - HYBRID_MIN_COVER`` of nnz) form
+    the residual.  The value moves are plain partial maps, kept on the
+    host and, per device, as int64 tensors (:meth:`maps`):
+
+    * ``src_of_grid`` (n*K,): entry feeding each grid slot, or -1;
+    * ``pos`` (nnz,): grid slot of each entry, or -1 (residual);
+    * ``resid_sel`` (nnz_r,): entry of each residual value;
+      ``resid_expand`` (nnz,) its inverse, -1 off the residual.
+    """
+    n: int
+    m: int
+    nnz: int
+    offsets: np.ndarray
+    K: int
+    pos: np.ndarray
+    src_of_grid: np.ndarray
+    geo: DiaGeometry
+    resid_rows: Optional[np.ndarray] = None
+    resid_cols: Optional[np.ndarray] = None
+    resid_sel: Optional[np.ndarray] = None
+    resid_expand: Optional[np.ndarray] = None
+    _dev: dict = field(default_factory=dict, repr=False)
+
+    @property
+    def span(self) -> int:
+        return int(self.offsets[-1] - self.offsets[0])
+
+    @property
+    def is_hybrid(self) -> bool:
+        return self.resid_sel is not None
+
+    def maps(self, device) -> dict:
+        """The plan's index maps as int64 tensors on ``device`` (cached)."""
+        device = torch.device(device)
+        d = self._dev.get(device)
+        if d is None:
+            names = ["src_of_grid", "pos"]
+            if self.is_hybrid:
+                names += ["resid_rows", "resid_cols", "resid_sel",
+                          "resid_expand"]
+            d = self._dev[device] = {
+                k: torch.from_numpy(np.array(getattr(self, k), np.int64)
+                                    ).to(device) for k in names}
+        return d
+
+
+def _select_diagonals(offs: np.ndarray, n: int):
+    """The diagonal-selection rule shared by :func:`dia_coverage` and
+    :func:`build_dia_plan` (the JAX package's ``_select_diagonals``).
+
+    Keeps the densest diagonals within two budgets: each kept diagonal
+    carries at least ``n / DIA_MAX_EXPAND`` entries (stray diagonals of a
+    hybrid remainder stay residual), and in all ``K * n <= DIA_MAX_EXPAND
+    * covered``.  When the first budget alone loses the 70 % coverage
+    (uniformly thinned diagonals), the selection is retried with the
+    aggregate budget only.
+
+    Returns ``(keep_n, kept_order_idx, covered, uniq_offsets)``.
+    """
+    uniq, counts = np.unique(offs, return_counts=True)
+    order = np.argsort(-counts, kind="stable")
+    cap = min(len(uniq), MAX_DIAGS)
+    kept = order[:cap]
+    cum = np.cumsum(counts[kept])
+
+    def shrink(keep_n):
+        while keep_n > 0 and keep_n * n > DIA_MAX_EXPAND * cum[keep_n - 1]:
+            keep_n -= 1
+        return keep_n
+
+    keep_n = shrink(min(cap, int((counts[kept] * DIA_MAX_EXPAND >= n).sum())))
+    covered = int(cum[keep_n - 1]) if keep_n else 0
+    if covered < HYBRID_MIN_COVER * len(offs):
+        keep_a = shrink(cap)
+        cov_a = int(cum[keep_a - 1]) if keep_a else 0
+        if cov_a >= HYBRID_MIN_COVER * len(offs):
+            return keep_a, kept, cov_a, uniq
+    return keep_n, kept, covered, uniq
+
+
+def dia_coverage(A) -> dict:
+    """How diagonal-structured a pattern is: the statistic the DIA gate
+    uses.
+
+    Returns a dict with ``nnz``, ``total_diagonals`` (distinct offsets),
+    ``kept_diagonals`` (K of the budgeted selection), ``coverage``
+    (fraction of nnz on the kept diagonals), ``qualifies`` (whether
+    :func:`build_dia_plan` returns a plan) and ``residual_nnz``.  A
+    batched pattern reports ``qualifies=False``.
+    """
+    rs, cs = A.row_sa(), A.col_sa()
+    if rs.arr.ndim != 1:
+        return {"nnz": A.nnz, "total_diagonals": -1, "kept_diagonals": 0,
+                "coverage": 0.0, "qualifies": False, "residual_nnz": -1}
+    n, m = A.mat_shape
+    offs = cs.arr.astype(np.int64) - rs.arr.astype(np.int64)
+    nnz = len(offs)
+    keep_n, kept, covered, uniq = _select_diagonals(offs, n)
+    plan = build_dia_plan(rs, cs, n, m)
+    return {
+        "nnz": nnz,
+        "total_diagonals": int(len(uniq)),
+        "kept_diagonals": int(keep_n),
+        "coverage": covered / max(nnz, 1),
+        "qualifies": plan is not None,
+        "residual_nnz": nnz - covered,
+    }
+
+
+@lru_cache(maxsize=64)
+def build_dia_plan(rows_sa, cols_sa, n: int, m: int) -> Optional[DiaPlan]:
+    """DIA plan of a pattern, or None when it does not qualify.
+
+    Needs entries in row-major (CSR) order.  Keeps the densest diagonals
+    (:func:`_select_diagonals`); when they cover at least
+    ``HYBRID_MIN_COVER`` of nnz the rest becomes the residual.  Cached on
+    the content hash of the index arrays.
+    """
+    rows = rows_sa.arr.astype(np.int64)
+    cols = cols_sa.arr.astype(np.int64)
+    nnz = len(rows)
+    if rows.ndim != 1 or nnz == 0:
+        return None
+    if nnz > 1:
+        d = np.diff(rows)
+        if (d < 0).any():
+            return None
+        if ((d == 0) & (np.diff(cols) <= 0)).any():
+            return None
+    offs = cols - rows
+    keep_n, kept, covered, uniq = _select_diagonals(offs, n)
+    if keep_n == 0 or covered < HYBRID_MIN_COVER * nnz:
+        return None
+    sel_offsets = np.sort(uniq[kept[:keep_n]])
+    K = len(sel_offsets)
+    on_dia = np.isin(offs, sel_offsets)
+    diag_idx = np.searchsorted(sel_offsets, offs)
+    pos = np.where(on_dia, rows * K + diag_idx, -1)
+    src_of_grid = np.full(n * K, -1, np.int64)
+    src_of_grid[pos[on_dia]] = np.nonzero(on_dia)[0]
+    geo = DiaGeometry(sel_offsets, n, m)
+    if covered == nnz:
+        return DiaPlan(n=n, m=m, nnz=nnz, offsets=sel_offsets, K=K, pos=pos,
+                       src_of_grid=src_of_grid, geo=geo)
+    resid_sel = np.nonzero(~on_dia)[0]
+    resid_expand = np.full(nnz, -1, np.int64)
+    resid_expand[resid_sel] = np.arange(len(resid_sel))
+    return DiaPlan(n=n, m=m, nnz=nnz, offsets=sel_offsets, K=K, pos=pos,
+                   src_of_grid=src_of_grid, geo=geo,
+                   resid_rows=rows[resid_sel], resid_cols=cols[resid_sel],
+                   resid_sel=resid_sel, resid_expand=resid_expand)
+
+
+# --------------------------------------------------------------------------
+# value relayouts (differentiable; each backward is the inverse gather)
+# --------------------------------------------------------------------------
+
+def values_to_grid(plan: DiaPlan, values: torch.Tensor) -> torch.Tensor:
+    """(nnz,) CSR-order values -> (n, K) diagonal grid, 0 at holes."""
+    d = plan.maps(values.device)
+    return WindowGather.apply(values, d["src_of_grid"], d["pos"]).view(
+        plan.n, plan.K)
+
+
+def grid_to_values(plan: DiaPlan, grid: torch.Tensor) -> torch.Tensor:
+    """(n, K) grid -> (nnz,) values, 0 at a hybrid plan's residual."""
+    d = plan.maps(grid.device)
+    return WindowGather.apply(grid.reshape(-1), d["pos"], d["src_of_grid"])
+
+
+def resid_values(plan: DiaPlan, values: torch.Tensor) -> torch.Tensor:
+    """(nnz,) values -> (nnz_r,) residual values of a hybrid plan."""
+    d = plan.maps(values.device)
+    return WindowGather.apply(values, d["resid_sel"], d["resid_expand"])
+
+
+def resid_expand_values(plan: DiaPlan, rvals: torch.Tensor) -> torch.Tensor:
+    """(nnz_r,) residual values -> (nnz,) slots, 0 elsewhere."""
+    d = plan.maps(rvals.device)
+    return WindowGather.apply(rvals, d["resid_expand"], d["resid_sel"])
+
+
+# --------------------------------------------------------------------------
+# the two DIA cores: kernel wrappers and their plain versions
+# --------------------------------------------------------------------------
+
+def _shifted_rows(offsets, X: torch.Tensor, n: int, acc: torch.dtype):
+    """Yield ``(k, view)`` with ``view[r] = X[r + off_k]`` (0 outside)."""
+    offs = (offsets.tolist() if isinstance(offsets, torch.Tensor)
+            else [int(o) for o in offsets])
+    lo = max(0, -min(offs))
+    hi = max(0, max(offs) + n - X.shape[0])
+    Xp = F.pad(X.to(acc), (0, 0, lo, hi))
+    for k, off in enumerate(offs):
+        yield k, Xp[off + lo:off + lo + n]
+
+
+def _acc_dtype(dtype: torch.dtype) -> torch.dtype:
+    return torch.float32 if dtype in (torch.bfloat16, torch.float16) \
+        else dtype
+
+
+def spmm_core_plain(offsets, grid: torch.Tensor, B: torch.Tensor):
+    """Plain PyTorch version of :func:`spmm_core` (bf16 accumulates in
+    f32, as the kernel does).  ``offsets`` may be a tensor or a list."""
+    n = grid.shape[0]
+    acc = _acc_dtype(grid.dtype)
+    g = grid.to(acc)
+    out = torch.zeros((n, B.shape[1]), dtype=acc, device=B.device)
+    for k, Bs in _shifted_rows(offsets, B, n, acc):
+        out.addcmul_(g[:, k:k + 1], Bs)
+    return out.to(grid.dtype)
+
+
+def spmm_core(offsets: torch.Tensor, grid: torch.Tensor,
+              B: torch.Tensor) -> torch.Tensor:
+    """``out[r, :] = Σ_k grid[r, k] · B[r + off_k, :]``: grid (n, K),
+    B (m, p), int64 sorted offsets (K,) -> (n, p).
+
+    CPU tensors take :func:`spmm_core_plain`; CUDA tensors launch
+    ``csrc/dia_spmm.cu`` and raise on what it does not take.
+    """
+    if all(t.device.type == "cpu" for t in (offsets, grid, B)):
+        return spmm_core_plain(offsets, grid, B)
+    suffix = _build.cuda_operands("dia spmm_core", (grid, B), (offsets,))
+    if grid.ndim != 2 or B.ndim != 2 or offsets.shape != grid.shape[1:]:
+        raise ValueError(f"dia spmm_core: needs grid (n, K), B (m, p) and "
+                         f"offsets (K,), got {tuple(grid.shape)}, "
+                         f"{tuple(B.shape)}, {tuple(offsets.shape)}")
+    (n, K), (m, p) = grid.shape, B.shape
+    if K > MAX_DIAGS or p > 32 * MAX_COL_BLOCKS:
+        raise ValueError(f"dia spmm_core: takes K <= {MAX_DIAGS} and p <= "
+                         f"{32 * MAX_COL_BLOCKS}, got K={K}, p={p}")
+    out = torch.empty((n, p), dtype=B.dtype, device=B.device)
+    if out.numel() == 0:
+        return out
+    _build.launch("dia_spmm", f"tsgu_dia_spmm_{suffix}", grid, B, offsets,
+                  out, n, m, K, p)
+    spmm_core.launches += 1
+    return out
+
+
+spmm_core.launches = 0
+
+
+def sddmm_core_plain(offsets, X: torch.Tensor, Y: torch.Tensor):
+    """Plain PyTorch version of :func:`sddmm_core`."""
+    n = X.shape[0]
+    acc = _acc_dtype(X.dtype)
+    Xa = X.to(acc)
+    cols = [(Xa * Ys).sum(dim=1) for _, Ys in _shifted_rows(offsets, Y, n,
+                                                             acc)]
+    return torch.stack(cols, dim=1).to(X.dtype)
+
+
+def sddmm_core(offsets: torch.Tensor, X: torch.Tensor,
+               Y: torch.Tensor) -> torch.Tensor:
+    """``out[r, k] = dot(X[r, :], Y[r + off_k, :])`` (0 where ``r + off_k``
+    is out of range): X (n, p), Y (m, p), int64 offsets (K,) -> (n, K).
+
+    CPU tensors take :func:`sddmm_core_plain`; CUDA tensors launch
+    ``csrc/dia_sddmm.cu`` and raise on what it does not take.
+    """
+    if all(t.device.type == "cpu" for t in (offsets, X, Y)):
+        return sddmm_core_plain(offsets, X, Y)
+    suffix = _build.cuda_operands("dia sddmm_core", (X, Y), (offsets,))
+    if X.ndim != 2 or Y.ndim != 2 or X.shape[1] != Y.shape[1] \
+            or offsets.ndim != 1:
+        raise ValueError(f"dia sddmm_core: needs X (n, p), Y (m, p) and "
+                         f"offsets (K,), got {tuple(X.shape)}, "
+                         f"{tuple(Y.shape)}, {tuple(offsets.shape)}")
+    (n, p), m, K = X.shape, Y.shape[0], offsets.shape[0]
+    if K > MAX_DIAGS:
+        raise ValueError(f"dia sddmm_core: takes K <= {MAX_DIAGS}, got {K}")
+    out = torch.empty((n, K), dtype=X.dtype, device=X.device)
+    if out.numel() == 0:
+        return out
+    _build.launch("dia_sddmm", f"tsgu_dia_sddmm_{suffix}", X, Y, offsets,
+                  out, n, m, K, p)
+    sddmm_core.launches += 1
+    return out
+
+
+sddmm_core.launches = 0
+
+
+class DiaSpmmCore(torch.autograd.Function):
+    """Differentiable :func:`spmm_core` over a :class:`DiaGeometry`.
+
+    Backward: ``d_grid = DiaSddmmCore(geo, G, B)`` and
+    ``d_B = DiaSpmmCore(geo.T, geo.shift(grid), G)``.
+    """
+
+    @staticmethod
+    def forward(ctx, geo, grid, B):
+        ctx.geo = geo
+        ctx.save_for_backward(grid, B)
+        return spmm_core(geo.offsets_on(grid.device), grid.contiguous(),
+                         B.contiguous())
+
+    @staticmethod
+    def backward(ctx, G):
+        grid, B = ctx.saved_tensors
+        geo = ctx.geo
+        d_grid = d_B = None
+        if ctx.needs_input_grad[1]:
+            d_grid = DiaSddmmCore.apply(geo, G, B)
+        if ctx.needs_input_grad[2]:
+            d_B = DiaSpmmCore.apply(geo.T, geo.shift(grid), G)
+        return None, d_grid, d_B
+
+
+class DiaSddmmCore(torch.autograd.Function):
+    """Differentiable :func:`sddmm_core` over a :class:`DiaGeometry`.
+
+    Backward: ``d_X = DiaSpmmCore(geo, ct, Y)`` and
+    ``d_Y = DiaSpmmCore(geo.T, geo.shift(ct), X)``.
+    """
+
+    @staticmethod
+    def forward(ctx, geo, X, Y):
+        ctx.geo = geo
+        ctx.save_for_backward(X, Y)
+        return sddmm_core(geo.offsets_on(X.device), X.contiguous(),
+                          Y.contiguous())
+
+    @staticmethod
+    def backward(ctx, ct):
+        X, Y = ctx.saved_tensors
+        geo = ctx.geo
+        d_X = d_Y = None
+        if ctx.needs_input_grad[1]:
+            d_X = DiaSpmmCore.apply(geo, ct, Y)
+        if ctx.needs_input_grad[2]:
+            d_Y = DiaSpmmCore.apply(geo.T, geo.shift(ct), X)
+        return None, d_X, d_Y
+
+
+# --------------------------------------------------------------------------
+# hybrid residual: the JAX package's gather + segment-sum branch
+# --------------------------------------------------------------------------
+
+def _resid_spmm(plan: DiaPlan, rvals, B):
+    """Residual entries' share of A @ B."""
+    d = plan.maps(B.device)
+    prod = rvals[:, None] * B.index_select(0, d["resid_cols"])
+    out = torch.zeros((plan.n, B.shape[1]), dtype=B.dtype, device=B.device)
+    return out.index_add(0, d["resid_rows"], prod)
+
+
+def _resid_spmm_t(plan: DiaPlan, rvals, G):
+    """Residual entries' share of Aᵀ @ G."""
+    d = plan.maps(G.device)
+    prod = rvals[:, None] * G.index_select(0, d["resid_rows"])
+    out = torch.zeros((plan.m, G.shape[1]), dtype=G.dtype, device=G.device)
+    return out.index_add(0, d["resid_cols"], prod)
+
+
+def _resid_sddmm(plan: DiaPlan, X, Y):
+    """(X @ Yᵀ) at the residual entries."""
+    d = plan.maps(X.device)
+    return (X.index_select(0, d["resid_rows"])
+            * Y.index_select(0, d["resid_cols"])).sum(-1)
+
+
+# --------------------------------------------------------------------------
+# entry points
+# --------------------------------------------------------------------------
+
+def dia_spmm(plan: DiaPlan, values: torch.Tensor,
+             B: torch.Tensor) -> torch.Tensor:
+    """A @ B for A in DIA form (plus the residual of a hybrid plan)."""
+    out = DiaSpmmCore.apply(plan.geo, values_to_grid(plan, values), B)
+    if plan.is_hybrid:
+        out = out + _resid_spmm(plan, resid_values(plan, values), B)
+    return out
+
+
+def dia_spmm_transpose(plan: DiaPlan, values: torch.Tensor, G: torch.Tensor,
+                       gv: torch.Tensor = None) -> torch.Tensor:
+    """Aᵀ @ G -> (m, p): the SpMM core over the transposed geometry.
+
+    ``gv`` may pass ``values_to_grid(plan, values)`` when the caller has
+    it, saving one relayout."""
+    grid = values_to_grid(plan, values) if gv is None else gv
+    out = DiaSpmmCore.apply(plan.geo.T, plan.geo.shift(grid), G)
+    if plan.is_hybrid:
+        out = out + _resid_spmm_t(plan, resid_values(plan, values), G)
+    return out
+
+
+def dia_sddmm(plan: DiaPlan, X: torch.Tensor, Y: torch.Tensor):
+    """Values of (X @ Yᵀ) at the pattern, in CSR order."""
+    vals = grid_to_values(plan, DiaSddmmCore.apply(plan.geo, X, Y))
+    if plan.is_hybrid:
+        vals = vals + resid_expand_values(plan, _resid_sddmm(plan, X, Y))
+    return vals
+
+
+def dia_bwd_pair(plan: DiaPlan, values, B, g, gv=None):
+    """``(d_values, d_B)`` of ``A @ B`` for the output cotangent ``g``:
+    the SDDMM at the pattern and Aᵀ g.  Built of the differentiable
+    Functions, so it can be differentiated again."""
+    d_values = grid_to_values(plan, DiaSddmmCore.apply(plan.geo, g, B))
+    if plan.is_hybrid:
+        d_values = d_values + resid_expand_values(
+            plan, _resid_sddmm(plan, g, B))
+    return d_values, dia_spmm_transpose(plan, values, g, gv=gv)
+
+
+def prepared_matvec(plan: DiaPlan, values: torch.Tensor, transpose: bool):
+    """Closure ``x -> A @ x`` (or ``Aᵀ @ x``) for ``x`` of shape (·, p),
+    with the value relayouts done once, for the iterations of a Krylov
+    solver."""
+    gv = values_to_grid(plan, values)
+    rv = resid_values(plan, values) if plan.is_hybrid else None
+    if transpose:
+        geo_t, gv_t = plan.geo.T, plan.geo.shift(gv)
+
+        def mv_t(x):
+            out = DiaSpmmCore.apply(geo_t, gv_t, x)
+            return out if rv is None else out + _resid_spmm_t(plan, rv, x)
+
+        return mv_t
+
+    def mv(x):
+        out = DiaSpmmCore.apply(plan.geo, gv, x)
+        return out if rv is None else out + _resid_spmm(plan, rv, x)
+
+    return mv

@@ -1,0 +1,243 @@
+"""Sparse @ dense matmul with sparsity-preserving gradients, and SDDMM.
+
+Port of ``torchsparsegradutils_tpu/ops/spmm.py``:
+
+* ``sparse_mm(A, B)``: the gradient of ``A`` is an SDDMM taken only at
+  A's stored entries, and lands on ``A.values``; the gradient of ``B`` is
+  ``Aᵀ G``.  Nothing of the dense ``(n, m)`` shape is built.
+* ``sddmm(A, X, Y)``: ``dot(X[i], Y[j])`` at A's pattern.
+
+Dispatch, per 2-D pattern:
+
+* ``backend="auto"`` or ``"dia"``: the DIA engine (``kernels/dia.py``)
+  when the pattern qualifies; ``"dia"`` raises when it does not.
+* ``"xla"``, and patterns with no DIA plan: the JAX package's generic
+  gather + segment-sum branch, in PyTorch ``index_select`` +
+  ``index_add``.
+* ``"pallas"`` and ``"ell"``: the chunk and ELL engines are not ported
+  yet; they raise ``NotImplementedError``.
+
+The gradients come from autograd through differentiable pieces: the DIA
+engine's Functions (whose backwards call each other) and PyTorch's
+gather and scatter.  Higher derivatives work.
+
+Example:
+    >>> import numpy as np, torch
+    >>> from torchsparsegradutils_tpu_torch import SparseCOO, sparse_mm
+    >>> A = SparseCOO(np.array([0, 0, 1]), np.array([0, 2, 1]),
+    ...               torch.tensor([1.0, 2.0, 3.0], requires_grad=True),
+    ...               (2, 3))
+    >>> out = sparse_mm(A, torch.ones(3, 2))
+    >>> out.sum().backward()
+    >>> A.values.grad.shape    # gradient only at the 3 stored entries
+    torch.Size([3])
+"""
+
+from __future__ import annotations
+
+from typing import Union
+
+import torch
+
+from ..kernels.dia import build_dia_plan, dia_sddmm, dia_spmm
+from ..types import SparseCOO, SparseCSR, is_sparse
+
+__all__ = ["sparse_mm", "sddmm"]
+
+_NOT_PORTED = ("backend={!r} needs the chunk/ELL engine, which is not "
+               "ported yet (ROADMAP.md, queue 1 item 5: chunk engine); "
+               "use backend='auto', 'dia' or 'xla'")
+
+
+def _check_backend(backend: str):
+    if backend in ("pallas", "ell"):
+        raise NotImplementedError(_NOT_PORTED.format(backend))
+    if backend not in ("auto", "dia", "xla"):
+        raise ValueError(f"unknown backend {backend!r}; expected 'auto', "
+                         "'dia' or 'xla'")
+
+
+def _dia_plan(A, backend: str):
+    """DIA plan of a 2-D pattern, or None; ``backend="dia"`` raises when
+    the pattern does not qualify."""
+    if backend not in ("auto", "dia"):
+        return None
+    rs, cs = A.row_sa(), A.col_sa()
+    plan = None
+    if rs.arr.ndim == 1:
+        plan = build_dia_plan(rs, cs, *A.mat_shape)
+    if plan is None and backend == "dia":
+        raise ValueError(
+            "backend='dia' requires a static 2-D diagonal-structured "
+            "pattern (<=256 diagonal offsets covering >=70% of nnz); "
+            "this pattern does not qualify — use backend='auto' for "
+            "automatic dispatch")
+    return plan
+
+
+def _fallback_spmm(n, rows, cols, values, B):
+    """Generic A @ B: gather B rows, scale, segment-sum into rows."""
+    prod = values[:, None] * B.index_select(0, cols)
+    out = torch.zeros((n, B.shape[-1]), dtype=B.dtype, device=B.device)
+    return out.index_add(0, rows, prod)
+
+
+def _fallback_sddmm(rows, cols, X, Y):
+    return (X.index_select(0, rows) * Y.index_select(0, cols)).sum(-1)
+
+
+def _spmm_2d(backend, A, B):
+    plan = _dia_plan(A, backend)
+    if plan is not None:
+        return dia_spmm(plan, A.values, B)
+    return _fallback_spmm(A.shape[-2], A.rows_t(), A.cols_t(), A.values, B)
+
+
+def _sddmm_2d(backend, A, X, Y):
+    plan = _dia_plan(A, backend)
+    if plan is not None:
+        return dia_sddmm(plan, X, Y)
+    return _fallback_sddmm(A.rows_t(), A.cols_t(), X, Y)
+
+
+def _shared_elem(A):
+    """2-D container over the shared pattern of a batched container."""
+    if isinstance(A, SparseCOO):
+        return SparseCOO(A.row, A.col, A.values[0], A.mat_shape)
+    return SparseCSR(A.indptr, A.indices, A.values[0], A.mat_shape)
+
+
+def _batch_index(A, idx: torch.Tensor, size: int) -> torch.Tensor:
+    """Per-element (b, nnz) indices into the flattened (b * size) rows."""
+    b = A.shape[0]
+    off = torch.arange(b, device=idx.device)[:, None] * size
+    return (idx + off).reshape(-1)
+
+
+def _dt(dtype) -> str:
+    return str(dtype).removeprefix("torch.")
+
+
+def _check_sparse_dense(A, B, op_name: str):
+    if not is_sparse(A):
+        raise TypeError(f"{op_name}: A must be SparseCOO or SparseCSR, "
+                        f"got {type(A).__name__}")
+    if is_sparse(B):
+        raise TypeError(f"{op_name}: B must be a dense array, got sparse")
+    if not isinstance(B, torch.Tensor):
+        B = torch.as_tensor(B, device=A.device)
+    if A.ndim not in (2, 3):
+        raise ValueError(f"{op_name}: A must be 2-D or batched 3-D, "
+                         f"got {A.ndim}-D")
+    if A.dtype != B.dtype:
+        raise ValueError(f"{op_name}: dtype mismatch, A is {_dt(A.dtype)} "
+                         f"and B is {_dt(B.dtype)}")
+    if A.device != B.device:
+        raise ValueError(f"{op_name}: device mismatch, A is on {A.device} "
+                         f"and B is on {B.device}")
+    return B
+
+
+def sparse_mm(A: Union[SparseCOO, SparseCSR], B, *, backend: str = "auto",
+              grad_precision: str = "exact"):
+    """Multiply a sparse matrix by a dense matrix: ``A @ B``.
+
+    Args:
+      A: ``(n, m)`` or batched ``(b, n, m)`` sparse container.  Its
+        gradient lands on ``A.values``, at the stored entries only.
+      B: dense ``(m, p)`` or ``(b, m, p)`` tensor on A's device; batch
+        dims must match A's (one side may be unbatched and is broadcast).
+      backend: ``"auto"`` | ``"dia"`` | ``"xla"`` (``"pallas"`` and
+        ``"ell"`` raise until the chunk engine is ported).
+      grad_precision: ``"exact"`` or ``"fast"``.  In the JAX package
+        ``"fast"`` only changes the chunk engine's fused backward; the
+        paths ported here compute exact gradients under either.
+
+    Returns:
+      Dense ``(n, p)`` or ``(b, n, p)`` tensor.
+    """
+    B = _check_sparse_dense(A, B, "sparse_mm")
+    if B.ndim not in (2, 3):
+        raise ValueError(f"sparse_mm: B must be 2-D or batched 3-D, got "
+                         f"{B.ndim}-D")
+    if A.shape[-1] != B.shape[-2]:
+        raise ValueError(f"sparse_mm: inner dims disagree, A has shape "
+                         f"{A.shape} and B has shape {tuple(B.shape)}")
+    if A.ndim == 3 and B.ndim == 3 and A.shape[0] != B.shape[0]:
+        raise ValueError(f"sparse_mm: batch dims disagree, {A.shape[0]} vs "
+                         f"{B.shape[0]}")
+    _check_backend(backend)
+    if grad_precision not in ("exact", "fast"):
+        raise ValueError(f"sparse_mm: grad_precision must be 'exact' or "
+                         f"'fast', got {grad_precision!r}")
+
+    if A.ndim == 2 and B.ndim == 2:
+        return _spmm_2d(backend, A, B)
+    if A.ndim == 2:  # B batched
+        return torch.stack([_spmm_2d(backend, A, b) for b in B.unbind(0)])
+    if not A.indices_batched():  # shared pattern: one plan, loop the batch
+        A0 = _shared_elem(A)
+        return torch.stack([
+            _spmm_2d(backend, A0.with_data(A.values[i]),
+                     B if B.ndim == 2 else B[i])
+            for i in range(A.shape[0])])
+    # per-element patterns: the generic branch over the flattened batch
+    b, n, m = A.shape
+    p = B.shape[-1]
+    rows = _batch_index(A, A.rows_t(), n)
+    if B.ndim == 2:
+        cols, Bf = A.cols_t().reshape(-1), B
+    else:
+        cols, Bf = _batch_index(A, A.cols_t(), m), B.reshape(b * m, p)
+    return _fallback_spmm(b * n, rows, cols, A.values.reshape(-1),
+                          Bf).view(b, n, p)
+
+
+def sddmm(A: Union[SparseCOO, SparseCSR], X, Y, *, backend: str = "auto"):
+    """Sampled dense-dense matmul: ``X @ Yᵀ`` at A's pattern.
+
+    Args:
+      A: sparse container giving the pattern (its values are not used),
+        shape ``(n, m)`` or ``(b, n, m)``.
+      X: dense ``(n, k)`` or batched ``(b, n, k)``.
+      Y: dense ``(m, k)`` or batched.
+
+    Returns:
+      A container with A's pattern and values
+      ``v[e] = dot(X[row[e]], Y[col[e]])``, differentiable in X and Y.
+    """
+    if not is_sparse(A):
+        raise TypeError("sddmm: A must be SparseCOO or SparseCSR")
+    X = X if isinstance(X, torch.Tensor) else torch.as_tensor(
+        X, device=A.device)
+    Y = Y if isinstance(Y, torch.Tensor) else torch.as_tensor(
+        Y, device=A.device)
+    if X.ndim != Y.ndim or X.shape[-1] != Y.shape[-1]:
+        raise ValueError(f"sddmm: X {tuple(X.shape)} and Y {tuple(Y.shape)} "
+                         "must share ndim and trailing (contraction) dim")
+    if X.shape[-2] != A.shape[-2] or Y.shape[-2] != A.shape[-1]:
+        raise ValueError(f"sddmm: X {tuple(X.shape)} / Y {tuple(Y.shape)} "
+                         f"do not match pattern shape {A.shape}")
+    _check_backend(backend)
+    if A.ndim == 2 and X.ndim == 2:
+        return A.with_data(_sddmm_2d(backend, A, X, Y))
+    if A.ndim == 2 and X.ndim == 3:
+        raise ValueError("sddmm: batched X/Y with an unbatched pattern is "
+                         "ambiguous; pass a batched pattern container")
+    if A.ndim == 3:
+        b, n, m = A.shape
+        if X.ndim == 2:
+            X = X.expand((b,) + tuple(X.shape))
+            Y = Y.expand((b,) + tuple(Y.shape))
+        if not A.indices_batched():
+            A0 = _shared_elem(A)
+            vals = torch.stack([_sddmm_2d(backend, A0, X[i], Y[i])
+                                for i in range(b)])
+        else:
+            k = X.shape[-1]
+            vals = _fallback_sddmm(
+                _batch_index(A, A.rows_t(), n), _batch_index(A, A.cols_t(), m),
+                X.reshape(b * n, k), Y.reshape(b * m, k)).view(b, -1)
+        return A.with_data(vals)
+    raise ValueError(f"sddmm: unsupported ndim combination A={A.ndim}, "
+                     f"X={X.ndim}")
