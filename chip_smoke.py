@@ -10,21 +10,28 @@ It imports only ``torch``, numpy and ``torchsparsegradutils_tpu_torch``
 script exits non-zero without its last line:
 
 1. prints the card's name and power limit (``nvidia-smi``), builds the
-   CUDA kernels of ``torchsparsegradutils_tpu_torch/csrc`` and prints the
-   build time;
-2. holds each kernel against its plain PyTorch version on the card at
-   the cfd2 shapes (N = 123,440 rows, the 25-offset stencil of
-   ``bench.py``, p = 128) in float32, bfloat16 and float64;
+   CUDA kernels of ``torchsparsegradutils_tpu_torch/csrc`` (one ``nvcc``
+   each, all at once) and prints the build time;
+2. holds each kernel against its plain PyTorch version on the card in
+   float32, bfloat16 and float64: the DIA kernels and the gather at the
+   cfd2 shapes (N = 123,440 rows, the 25-offset stencil of ``bench.py``,
+   p = 128); the chunk kernels on a uniform random pattern of cfd2 size
+   (3,087,898 entries; SpMM and SDDMM at p = 128, SpMV at p = 1, the
+   SpMM over the transpose plan too), each run twice and bitwise equal,
+   and at a small size with empty rows, a row of 5,000 entries, p = 3
+   and n != m;
 3. runs ``sparse_mm`` forward and backward through the public entry
-   point on that stencil, on a hybrid pattern at 85 % DIA coverage and
-   at p = 16, checks outputs and gradients against the generic
-   ``backend="xla"`` path on the card and a small case against a dense
-   product, and checks that each kernel's launch counter rose during
-   each run;
-4. times the chained forward and forward+backward steps and each
-   kernel, its plain version and one PyTorch library call that computes
-   the same function, with CUDA events, and prints them as a
-   ``{"kernels": [...]}`` line;
+   point on that stencil, on a hybrid pattern at 85 % DIA coverage, at
+   p = 16, and on the random pattern at p = 128 and p = 1, and public
+   ``sddmm`` on the random pattern; checks outputs and gradients against
+   the generic ``backend="xla"`` path on the card and a small case
+   against a dense product, and checks that each kernel of each path
+   launched during its run (counters set to 0 just before, read just
+   after);
+4. times the chained forward and forward+backward steps, profiles
+   four of them, and times each kernel, its plain version and one
+   PyTorch library call that computes the same function, with CUDA
+   events, and prints them as a ``{"kernels": [...]}`` line;
 5. prints ``{"ok": true, "device": {...}}`` as the last line.
 
 Without a CUDA device it exits 1 and prints no result.
@@ -38,6 +45,7 @@ import time
 N = 123_440           # cfd2 rows (bench.py)
 P = 128               # RHS width (bench.py)
 NNZ_HYBRID = 3_087_898
+NNZ_RANDOM = 3_087_898  # bench.py's uniform random regime at cfd2 scale
 STENCIL_OFFSETS = sorted({0, 1, -1, 2, -2, 3, -3, 49, -49, 50, -50, 51,
                           -51, 2401, -2401, 2449, -2449, 2450, -2450,
                           2451, -2451, 2499, -2499, 2500, -2500})
@@ -45,6 +53,8 @@ HBM_BYTES_S = 3.35e12   # H100 SXM data sheet
 F32_FLOP_S = 67e12      # H100 SXM data sheet, float32 outside tensor cores
 TOL = {"float32": (1e-5, 1e-5), "bfloat16": (2e-2, 1e-5),
        "float64": (1e-12, 1e-12)}  # (rtol, atol as a fraction of max|ref|)
+DIA_KERNELS = ("dia_spmm", "dia_sddmm", "gather")
+CHUNK_KERNELS = ("chunk_spmm", "chunk_sddmm", "gather")
 
 
 def smi_line() -> str:
@@ -131,12 +141,33 @@ def profile_step(label, step, steps=5, top=8):
 
 
 def counters():
+    from torchsparsegradutils_tpu_torch.kernels.chunk_spmm import (
+        chunk_sddmm, chunk_spmm, chunk_spmv)
     from torchsparsegradutils_tpu_torch.kernels.dia import (sddmm_core,
                                                             spmm_core)
     from torchsparsegradutils_tpu_torch.kernels.window_gather import (
         window_gather)
     return {"dia_spmm": spmm_core, "dia_sddmm": sddmm_core,
-            "gather": window_gather}
+            "gather": window_gather, "chunk_spmm": chunk_spmm,
+            "chunk_sddmm": chunk_sddmm, "chunk_spmv": chunk_spmv}
+
+
+def zero_counters():
+    for fn in counters().values():
+        fn.launches = 0
+
+
+def read_counters(label, expect):
+    """Launch counts since :func:`zero_counters`; raises if a kernel of
+    ``expect`` did not launch."""
+    import torch
+    torch.cuda.synchronize()
+    launches = {k: fn.launches for k, fn in counters().items()}
+    print(f"  {label}: launches {launches}")
+    missing = [k for k in expect if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"{label}: kernels {missing} never launched")
+    return launches
 
 
 def fwd_bwd(A, B, G, backend):
@@ -149,39 +180,96 @@ def fwd_bwd(A, B, G, backend):
     return out, gv, gb
 
 
-def drive(label, A, B, G):
+def drive(label, A, B, G, expect):
     """One fwd+bwd through the public entry with the counters set to 0
-    just before and read just after; then the generic path as reference."""
-    import torch
-    for fn in counters().values():
-        fn.launches = 0
+    just before and read just after (each kernel of ``expect`` must have
+    launched); then the generic path as reference."""
+    zero_counters()
     out, gv, gb = fwd_bwd(A, B, G, "auto")
-    torch.cuda.synchronize()
-    launches = {k: fn.launches for k, fn in counters().items()}
-    print(f"  {label}: launches {launches}")
-    missing = [k for k, c in launches.items() if c == 0]
-    if missing:
-        raise AssertionError(f"{label}: kernels {missing} never launched")
+    launches = read_counters(label, expect)
     ref = fwd_bwd(A, B, G, "xla")
     for name, got, r in zip(("out", "gradA", "gradB"), (out, gv, gb), ref):
         close(f"{label} {name} vs generic path", got, r, "float32")
     return launches
 
 
+def sddmm_fwd_bwd(A, X, Y, C, backend):
+    import torch
+    from torchsparsegradutils_tpu_torch import sddmm
+    x = X.detach().clone().requires_grad_(True)
+    y = Y.detach().clone().requires_grad_(True)
+    vals = sddmm(A, x, y, backend=backend).values
+    return (vals, *torch.autograd.grad(vals, (x, y), C))
+
+
+def awkward_pattern():
+    """(700, 6000): every seventh row empty, row 5 holding 5,000 entries
+    (longer than any block), the rest uniform random."""
+    import numpy as np
+    from torchsparsegradutils_tpu_torch.kernels.chunk_spmm import (
+        build_chunk_plan)
+    from torchsparsegradutils_tpu_torch.types import StaticArray
+    n, m = 700, 6000
+    rng = np.random.default_rng(3)
+    keys = np.sort(rng.choice(n * m, 20_000, replace=False))
+    rows, cols = keys // m, keys % m
+    keep = (rows % 7 != 0) & (rows != 5)
+    rows = np.concatenate([rows[keep], np.full(5000, 5)])
+    cols = np.concatenate([cols[keep], np.sort(rng.choice(m, 5000, False))])
+    order = np.lexsort((cols, rows))
+    return build_chunk_plan(StaticArray(rows[order]),
+                            StaticArray(cols[order]), n, m)
+
+
+def check_chunk_kernels(label, plan, vals, B, X, dt_name):
+    """K6 (A@B and Aᵀ X), K7 and K8 against their plain versions, each
+    launched twice and bitwise equal; returns the largest errors."""
+    import torch
+    from torchsparsegradutils_tpu_torch.kernels.chunk_spmm import (
+        chunk_sddmm, chunk_sddmm_plain, chunk_spmm, chunk_spmm_plain,
+        chunk_spmv, chunk_spmv_plain)
+    d, dt = plan.maps(B.device), plan.T.maps(B.device)
+    vals_t = plan.to_T(vals)
+    x = B[:, 0].contiguous()
+    checks = [
+        ("chunk_spmm", "A@B", chunk_spmm, chunk_spmm_plain,
+         (d["indptr"], d["cols"], vals, B)),
+        ("chunk_spmm", "A^T X", chunk_spmm, chunk_spmm_plain,
+         (dt["indptr"], dt["cols"], vals_t, X)),
+        ("chunk_sddmm", "X, B", chunk_sddmm, chunk_sddmm_plain,
+         (d["indptr"], d["cols"], X, B)),
+        ("chunk_spmv", "A@x", chunk_spmv, chunk_spmv_plain,
+         (d["indptr"], d["cols"], vals, x))]
+    err = {}
+    for name, what, kern, plain, args in checks:
+        got, again = kern(*args), kern(*args)
+        if not torch.equal(got, again):
+            raise AssertionError(f"{label} {name} {what} [{dt_name}]: two "
+                                 "launches differ")
+        e = close(f"{label} {name} {what} (repeats bitwise)", got,
+                  plain(*args), dt_name)
+        err[name] = max(err.get(name, 0.0), e)
+    return err
+
+
 def main() -> int:
+    import numpy as np
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     from torchsparsegradutils_tpu_torch import sparse_mm
     from torchsparsegradutils_tpu_torch.kernels import _build
+    from torchsparsegradutils_tpu_torch.kernels.chunk_spmm import (
+        build_chunk_plan, chunk_sddmm, chunk_sddmm_plain, chunk_spmm,
+        chunk_spmm_plain, chunk_spmv, chunk_spmv_plain)
     from torchsparsegradutils_tpu_torch.kernels.dia import (
         build_dia_plan, sddmm_core, sddmm_core_plain, spmm_core,
         spmm_core_plain, values_to_grid)
     from torchsparsegradutils_tpu_torch.kernels.window_gather import (
         window_gather, window_gather_plain)
     from torchsparsegradutils_tpu_torch.utils.random_sparse import (
-        hybrid_sparse, stencil_sparse)
+        hybrid_sparse, rand_sparse, stencil_sparse)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -196,6 +284,7 @@ def main() -> int:
     _build.libraries()
     print(f"phase 1: kernels built in {info['seconds']:.1f} s "
           f"({info['dir']})")
+    t0 = time.perf_counter()
     for name, log in info["logs"].items():
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
@@ -212,6 +301,10 @@ def main() -> int:
     B = torch.randn(N, P, generator=gen).to(dev)
     G = torch.randn(N, P, generator=gen).to(dev)
     grid = values_to_grid(plan, A.values)
+    R = rand_sparse((N, N), NNZ_RANDOM, layout="csr", generator=gen,
+                    device=dev)
+    cplan = build_chunk_plan(R.row_sa(), R.col_sa(), N, N)
+    small = awkward_pattern()
     err = {}
     for dt in (torch.float32, torch.bfloat16, torch.float64):
         name = str(dt).removeprefix("torch.")
@@ -230,25 +323,53 @@ def main() -> int:
             if not torch.equal(got, window_gather_plain(src, idx)):
                 raise AssertionError(f"gather {what} [{name}] not exact")
             print(f"  gather {what} [{name}]: exact")
+        ec = check_chunk_kernels("random cfd2", cplan, R.values.to(dt), b, gg,
+                                 name)
+        sv = torch.randn(small.nnz, generator=gen).to(dev, dt)
+        sB = torch.randn(small.m, 3, generator=gen).to(dev, dt)
+        sX = torch.randn(small.n, 3, generator=gen).to(dev, dt)
+        check_chunk_kernels("small p=3", small, sv, sB, sX, name)
+        d = small.maps(dev)
+        if not bool((chunk_spmm(d["indptr"], d["cols"], sv, sB)[::7] == 0
+                     ).all()):
+            raise AssertionError("chunk_spmm: an empty row is not 0")
         if dt == torch.float32:
-            err = {"dia_spmm": max(e1, e2), "dia_sddmm": e3, "gather": 0.0}
+            err = {"dia_spmm": max(e1, e2), "dia_sddmm": e3, "gather": 0.0,
+                   **ec}
 
     # ---- phase 3: the main path --------------------------------------------
-    print("phase 3: sparse_mm fwd+bwd through the public entry point")
-    small = stencil_sparse((512, 512), [-40, -3, 0, 2, 40], generator=gen,
-                           device=dev)
+    print(f"phase 3: sparse_mm fwd+bwd through the public entry point "
+          f"({time.perf_counter() - t0:.1f} s in)")
+    small_st = stencil_sparse((512, 512), [-40, -3, 0, 2, 40],
+                              generator=gen, device=dev)
     Bs = torch.randn(512, 8, generator=gen).to(dev)
-    close("small stencil vs dense f64", sparse_mm(small, Bs),
-          small.todense().double() @ Bs.double(), "float32")
-    launches = drive("stencil p=128", A, B, G)
+    close("small stencil vs dense f64", sparse_mm(small_st, Bs),
+          small_st.todense().double() @ Bs.double(), "float32")
+    small_r = rand_sparse((500, 400), 6000, layout="csr", generator=gen,
+                          device=dev)
+    close("small random vs dense f64", sparse_mm(small_r, Bs[:400]),
+          small_r.todense().double() @ Bs[:400].double(), "float32")
+    launches = drive("stencil p=128", A, B, G, DIA_KERNELS)
     H = hybrid_sparse((N, N), STENCIL_OFFSETS, NNZ_HYBRID, dia_coverage=0.85,
                       generator=gen, device=dev)
-    drive("hybrid85 p=128", H, B, G)
+    drive("hybrid85 p=128", H, B, G,
+          DIA_KERNELS + ("chunk_spmm", "chunk_sddmm"))
     B16, G16 = B[:, :16].contiguous(), G[:, :16].contiguous()
-    drive("stencil p=16", A, B16, G16)
+    drive("stencil p=16", A, B16, G16, DIA_KERNELS)
+    launches_r = drive("random p=128", R, B, G, CHUNK_KERNELS)
+    B1, G1 = B[:, :1].contiguous(), G[:, :1].contiguous()
+    launches_r1 = drive("random p=1", R, B1, G1,
+                        ("chunk_spmv", "chunk_sddmm", "gather"))
+    C = torch.randn(R.nnz, generator=gen).to(dev)
+    zero_counters()
+    got = sddmm_fwd_bwd(R, G, B, C, "auto")
+    read_counters("random sddmm p=128", CHUNK_KERNELS)
+    for name, g_, r_ in zip(("values", "gradX", "gradY"), got,
+                            sddmm_fwd_bwd(R, G, B, C, "xla")):
+        close(f"random sddmm {name} vs generic path", g_, r_, "float32")
 
     # ---- phase 4: timing ---------------------------------------------------
-    print("phase 4: timing")
+    print(f"phase 4: timing ({time.perf_counter() - t0:.1f} s in)")
     eps = 1e-6
 
     def chain_fwd(A, B):
@@ -279,11 +400,16 @@ def main() -> int:
         "stencil_fwd_bwd_peak_extra_mib":
             torch.cuda.max_memory_allocated() / 2**20 - base_mib,
         "hybrid85_fwd_bwd_ms": time_ms(chain_step(H, B, G), reps=50),
-        "stencil_p16_fwd_bwd_ms": time_ms(chain_step(A, B16, G16), reps=50),
+        "stencil_p16_fwd_bwd_ms": time_ms(chain_step(A, B16, G16), reps=20),
+        "random_fwd_ms": time_ms(chain_fwd(R, B), reps=50),
+        "random_fwd_bwd_ms": time_ms(chain_step(R, B, G), reps=50),
+        "random_p1_fwd_bwd_ms": time_ms(chain_step(R, B1, G1), reps=50),
     }
     print(json.dumps({"main_path": steps, "card": card}))
     profile_step("stencil_fwd_bwd_step", chain_step(A, B, G))
     profile_step("hybrid85_fwd_bwd_step", chain_step(H, B, G))
+    profile_step("random_fwd_bwd_step", chain_step(R, B, G))
+    profile_step("random_p1_fwd_bwd_step", chain_step(R, B1, G1))
 
     es = 4
     n, m, K = N, N, plan.K
@@ -295,12 +421,20 @@ def main() -> int:
     vals_pad = torch.cat([A.values, A.values.new_zeros(1)])
     idx_pad = torch.where(maps["src_of_grid"] >= 0, maps["src_of_grid"],
                           A.nnz)
+    cm = cplan.maps(dev)
+    csr_r = torch.sparse_csr_tensor(cm["indptr"], cm["cols"], R.values,
+                                    (n, m))
+    x1 = B1.view(-1)
+    nnz_r = R.nnz
+    ucols = len(np.unique(R.cols()))               # B rows the pattern reads
+    urows = int((cplan.indptr[1:] > cplan.indptr[:-1]).sum())
+    idx_bytes = nnz_r * 8 + (n + 1) * 8            # cols + indptr, int64
     rows = []
     spec = [
         ("dia_spmm", "torchsparsegradutils_tpu_torch/csrc/dia_spmm.cu",
          "torchsparsegradutils_tpu/kernels/dia_mxu.py:838 (K1 "
          "spmm_core_mxu) and torchsparsegradutils_tpu/kernels/dia.py:477 "
-         "(K4 _spmm_core_pallas)",
+         "(K4 _spmm_core_pallas)", launches,
          lambda: spmm_core(offs, grid, B),
          lambda: spmm_core_plain(offs_list, grid, B),
          lambda: torch.sparse.mm(csr, B),
@@ -308,23 +442,46 @@ def main() -> int:
         ("dia_sddmm", "torchsparsegradutils_tpu_torch/csrc/dia_sddmm.cu",
          "torchsparsegradutils_tpu/kernels/dia_mxu.py:974 (K2 "
          "sddmm_core_mxu) and torchsparsegradutils_tpu/kernels/dia.py:538 "
-         "(K5 _dia_sddmm_pallas)",
+         "(K5 _dia_sddmm_pallas)", launches,
          lambda: sddmm_core(offs, G, B),
          lambda: sddmm_core_plain(offs_list, G, B),
          lambda: torch.sparse.sampled_addmm(csr, G, B.t(), beta=0.0),
          bound((n * P + m * P + n * K) * es + K * 8, 2 * cells * P)),
         ("gather", "torchsparsegradutils_tpu_torch/csrc/gather.cu",
          "torchsparsegradutils_tpu/kernels/window_gather.py:402 (K3 "
-         "_window_gather_impl)",
+         "_window_gather_impl)", launches,
          lambda: window_gather(A.values, maps["src_of_grid"]),
          lambda: window_gather_plain(A.values, maps["src_of_grid"]),
          lambda: torch.index_select(vals_pad, 0, idx_pad),
          bound(n * K * 8 + A.nnz * es + n * K * es, 0)),
+        ("chunk_spmm", "torchsparsegradutils_tpu_torch/csrc/chunk_spmm.cu",
+         "torchsparsegradutils_tpu/kernels/chunk_spmm.py:248 (K6 "
+         "chunk_spmm)", launches_r,
+         lambda: chunk_spmm(cm["indptr"], cm["cols"], R.values, B),
+         lambda: chunk_spmm_plain(cm["indptr"], cm["cols"], R.values, B),
+         lambda: torch.sparse.mm(csr_r, B),
+         bound(nnz_r * es + idx_bytes + (ucols + n) * P * es,
+               2 * nnz_r * P)),
+        ("chunk_sddmm", "torchsparsegradutils_tpu_torch/csrc/chunk_sddmm.cu",
+         "torchsparsegradutils_tpu/kernels/chunk_spmm.py:349 (K7 "
+         "chunk_sddmm)", launches_r,
+         lambda: chunk_sddmm(cm["indptr"], cm["cols"], G, B),
+         lambda: chunk_sddmm_plain(cm["indptr"], cm["cols"], G, B),
+         lambda: torch.sparse.sampled_addmm(csr_r, G, B.t(), beta=0.0),
+         bound((urows + ucols) * P * es + idx_bytes + nnz_r * es,
+               2 * nnz_r * P)),
+        ("chunk_spmv", "torchsparsegradutils_tpu_torch/csrc/chunk_spmv.cu",
+         "torchsparsegradutils_tpu/kernels/chunk_spmm.py:296 (K8 "
+         "chunk_spmv)", launches_r1,
+         lambda: chunk_spmv(cm["indptr"], cm["cols"], R.values, x1),
+         lambda: chunk_spmv_plain(cm["indptr"], cm["cols"], R.values, x1),
+         lambda: torch.sparse.mm(csr_r, B1),
+         bound(nnz_r * es + idx_bytes + (ucols + n) * es, 2 * nnz_r)),
     ]
-    for name, source, replaces, kern, plain, lib, (b_ms, b_by) in spec:
+    for name, source, replaces, lc, kern, plain, lib, (b_ms, b_by) in spec:
         rows.append({
             "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": launches[name],
+            "replaces": replaces, "launches": lc[name],
             "max_abs_err": err[name], "ms": time_ms(kern),
             "plain_ms": time_ms(plain), "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": time_ms(lib)})

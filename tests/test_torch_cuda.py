@@ -15,14 +15,18 @@ import torch
 
 from torchsparsegradutils_tpu_torch import sddmm, sparse_mm
 from torchsparsegradutils_tpu_torch.kernels import _build
+from torchsparsegradutils_tpu_torch.kernels.chunk_spmm import (
+    build_chunk_plan, chunk_sddmm, chunk_sddmm_plain, chunk_spmm,
+    chunk_spmm_plain, chunk_spmv, chunk_spmv_plain)
 from torchsparsegradutils_tpu_torch.kernels.dia import (sddmm_core,
                                                         sddmm_core_plain,
                                                         spmm_core,
                                                         spmm_core_plain)
 from torchsparsegradutils_tpu_torch.kernels.window_gather import (
     window_gather, window_gather_plain)
+from torchsparsegradutils_tpu_torch.types import StaticArray
 from torchsparsegradutils_tpu_torch.utils.random_sparse import (
-    hybrid_sparse, stencil_sparse)
+    hybrid_sparse, rand_sparse, stencil_sparse)
 
 pytestmark = pytest.mark.cuda
 
@@ -80,10 +84,69 @@ def test_gather_matches_plain_exactly(dev, dtype):
     assert window_gather.launches == before + 1
 
 
-@pytest.mark.parametrize("kind", ["stencil", "hybrid"])
+def _awkward_chunk_plan():
+    """(n, m) = (700, 6000): every seventh row empty, row 5 dense with
+    5,000 entries (longer than any block), the rest uniform random."""
+    n, m = 700, 6000
+    rng = np.random.default_rng(3)
+    keys = np.sort(rng.choice(n * m, 20_000, replace=False))
+    rows, cols = keys // m, keys % m
+    keep = (rows % 7 != 0) & (rows != 5)
+    rows = np.concatenate([rows[keep], np.full(5000, 5)])
+    cols = np.concatenate([cols[keep], np.sort(rng.choice(m, 5000, False))])
+    order = np.lexsort((cols, rows))
+    return build_chunk_plan(StaticArray(rows[order]),
+                            StaticArray(cols[order]), n, m)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("p", [1, 3, 8, 128, 130, 260])
+def test_chunk_kernels_match_plain_and_repeat_bitwise(dev, dtype, p):
+    plan = _awkward_chunk_plan()
+    g = torch.Generator().manual_seed(p)
+    vals = torch.randn(plan.nnz, generator=g).to(dev, dtype)
+    B = torch.randn(plan.m, p, generator=g).to(dev, dtype)
+    X = torch.randn(plan.n, p, generator=g).to(dev, dtype)
+    d, dt = plan.maps(dev), plan.T.maps(dev)
+    vals_t = plan.to_T(vals)
+    calls = [(chunk_spmm, chunk_spmm_plain, (d["indptr"], d["cols"], vals, B)),
+             (chunk_spmm, chunk_spmm_plain,
+              (dt["indptr"], dt["cols"], vals_t, X)),         # A^T X
+             (chunk_sddmm, chunk_sddmm_plain, (d["indptr"], d["cols"], X, B))]
+    if p == 1:
+        calls.append((chunk_spmv, chunk_spmv_plain,
+                      (d["indptr"], d["cols"], vals, B[:, 0])))
+    for kern, plain, args in calls:
+        before = kern.launches
+        got = kern(*args)
+        again = kern(*args)
+        torch.cuda.synchronize()
+        assert kern.launches == before + 2
+        assert torch.equal(got, again), f"{kern.__name__} not repeatable"
+        close(got, plain(*args), dtype)
+    out = chunk_spmm(d["indptr"], d["cols"], vals, B)
+    assert bool((out[::7] == 0).all())            # empty rows write 0
+
+
+def test_chunk_kernels_take_unaligned_rows(dev):
+    # p % 4 == 0 but a base 4 bytes off 16-byte alignment: the scalar path
+    plan = _awkward_chunk_plan()
+    d = plan.maps(dev)
+    vals = torch.randn(plan.nnz, device=dev)
+    B = torch.randn(plan.m * 64 + 1, device=dev)[1:].view(plan.m, 64)
+    X = torch.randn(plan.n * 64 + 1, device=dev)[1:].view(plan.n, 64)
+    close(chunk_spmm(d["indptr"], d["cols"], vals, B),
+          chunk_spmm_plain(d["indptr"], d["cols"], vals, B), torch.float32)
+    close(chunk_sddmm(d["indptr"], d["cols"], X, B),
+          chunk_sddmm_plain(d["indptr"], d["cols"], X, B), torch.float32)
+
+
+@pytest.mark.parametrize("kind", ["stencil", "hybrid", "random"])
 def test_sparse_mm_on_card_matches_cpu(dev, kind):
     if kind == "stencil":
         A = stencil_sparse((3000, 2500), [-700, -1, 0, 1, 40], device="cpu")
+    elif kind == "random":
+        A = rand_sparse((3000, 2500), 30_000, layout="csr", device="cpu")
     else:
         A = hybrid_sparse((3000, 3000), [-50, -1, 0, 1, 50], 14_000,
                           dia_coverage=0.85, device="cpu")
@@ -124,6 +187,19 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
     before = spmm_core.launches
     assert spmm_core(offs, x, x[:, :0]).shape == (8, 0)
     assert spmm_core.launches == before          # nothing to launch
+
+
+def test_chunk_wrappers_refuse_what_the_kernels_do_not_take(dev):
+    ip = torch.tensor([0, 1, 2], device=dev)
+    x = torch.ones(2, 4, device=dev)
+    with pytest.raises(ValueError, match="int64"):
+        chunk_spmm(ip.int(), ip[:2], x[:, 0], x)
+    with pytest.raises(ValueError, match="float32, bfloat16 or float64"):
+        chunk_sddmm(ip, ip[:2], x.half(), x.half())
+    with pytest.raises(ValueError, match="bad operand shapes"):
+        chunk_spmv(ip, ip[:2], x[0, :2], x)
+    with pytest.raises(ValueError, match="CUDA device"):
+        chunk_spmm(ip, ip[:2].cpu(), x[0, :2], x)
 
 
 def test_wrappers_raise_on_cuda_when_the_build_is_missing(dev, monkeypatch,

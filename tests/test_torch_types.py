@@ -205,6 +205,7 @@ def test_build_key_follows_sources():
     "torchsparsegradutils_tpu_torch.convert",
     "torchsparsegradutils_tpu_torch.ops.spmm",
     "torchsparsegradutils_tpu_torch.kernels.dia",
+    "torchsparsegradutils_tpu_torch.kernels.chunk_spmm",
     "torchsparsegradutils_tpu_torch.kernels.window_gather",
     "torchsparsegradutils_tpu_torch.utils.random_sparse",
 ])

@@ -1,10 +1,13 @@
 """PyTorch port of torchsparsegradutils_tpu for NVIDIA Hopper GPUs.
 
 Sparse containers whose gradients stay at the stored entries, and
-``sparse_mm`` / ``sddmm`` on the DIA engine, whose SpMM, SDDMM and value
-relayout run as hand-written CUDA kernels (``csrc/``) on the card and as
-their plain PyTorch versions on the CPU.  The JAX package beside it is
-the reference this port is tested against; the port imports none of it.
+``sparse_mm`` / ``sddmm`` with their sparsity-preserving backward on two
+engines: the DIA engine for diagonal-structured patterns, and the chunk
+engine for general row-sorted patterns and a hybrid pattern's residual.
+Their SpMM, SDDMM, SpMV and value relayout run as hand-written CUDA
+kernels (``csrc/``) on the card and as their plain PyTorch versions on
+the CPU.  The JAX package beside it is the reference this port is tested
+against; the port imports none of it.
 """
 
 from .convert import from_arrays, to_arrays

@@ -1,1 +1,2 @@
-"""Kernels of the port: the DIA engine and the value-grid gather."""
+"""Kernels of the port: the DIA engine, the chunk engine and the value
+gather."""

@@ -34,7 +34,8 @@ CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG.parent / "build" / "tsgu_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-KERNELS = ("dia_spmm", "dia_sddmm", "gather")
+KERNELS = ("dia_spmm", "dia_sddmm", "gather", "chunk_spmm", "chunk_sddmm",
+           "chunk_spmv")
 
 
 def _nvcc() -> str:
@@ -98,6 +99,13 @@ def libraries() -> dict:
 
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16",
            torch.float64: "f64"}
+
+
+def acc_dtype(dtype: torch.dtype) -> torch.dtype:
+    """The type the kernels (and their plain versions) accumulate in:
+    float32 for bfloat16 and float16, the type itself otherwise."""
+    return torch.float32 if dtype in (torch.bfloat16, torch.float16) \
+        else dtype
 
 
 def cuda_operands(name: str, floats, ints) -> str:

@@ -1,0 +1,348 @@
+"""Chunk engine: SpMM, SDDMM and SpMV over a general row-sorted pattern.
+
+Port of ``torchsparsegradutils_tpu/kernels/chunk_spmm.py``.  The TPU
+kernels there cut the entry stream into chunks of C entries, reduce each
+chunk's rows with a one-hot matrix on the MXU and combine the chunks
+with a segment sum, because a TPU cannot scatter.  An H100 reads the
+pattern as CSR: one warp owns one output row and walks its entries.  So
+a plan is only what the kernels read, the entries' row pointers and
+gather columns:
+
+    out[r, :] = Σ_{e in row r} val_e · B[col_e, :]     (SpMM, K6)
+    dd[e]     = dot(X[row_e, :], Y[col_e, :])          (SDDMM, K7)
+    y[r]      = Σ_{e in row r} val_e · x[col_e]        (SpMV, K8)
+
+``Aᵀ G`` is the SpMM again over the transpose plan, whose entries are
+sorted by (column, row), on the values reordered by the ported K3
+gather (:mod:`.window_gather`), where the JAX package used its Beneš
+network.
+
+Three hand-written CUDA kernels carry the engine, each beside its plain
+PyTorch version: :func:`chunk_spmm` (``csrc/chunk_spmm.cu``),
+:func:`chunk_sddmm` (``csrc/chunk_sddmm.cu``) and :func:`chunk_spmv`
+(``csrc/chunk_spmv.cu``).  On CPU tensors the wrappers run the plain
+versions; on CUDA tensors they launch the kernels or raise.
+:class:`ChunkSpmm` and :class:`ChunkSddmm` make them differentiable,
+each backward calling the Functions again, so higher derivatives work.
+
+Example:
+    >>> import numpy as np, torch
+    >>> from torchsparsegradutils_tpu_torch.types import StaticArray
+    >>> rows, cols = np.array([0, 0, 2]), np.array([1, 2, 0])
+    >>> plan = build_chunk_plan(StaticArray(rows), StaticArray(cols), 3, 3)
+    >>> plan.indptr.tolist(), plan.T.perm.tolist()
+    ([0, 2, 2, 3], [2, 0, 1])
+    >>> ChunkSpmm.apply(plan, torch.tensor([1.0, 2.0, 3.0]),
+    ...                 torch.eye(3)).tolist()
+    [[0.0, 1.0, 2.0], [0.0, 0.0, 0.0], [3.0, 0.0, 0.0]]
+"""
+
+from __future__ import annotations
+
+from functools import lru_cache
+from typing import Optional
+
+import numpy as np
+import torch
+
+from . import _build
+from .window_gather import WindowGather
+
+__all__ = ["ChunkPlan", "build_chunk_plan", "build_chunk_plan_transpose",
+           "chunk_spmm", "chunk_sddmm", "chunk_spmv", "ChunkSpmm",
+           "ChunkSddmm"]
+
+TILE = 128               # columns a warp covers per block (csrc TILE)
+MAX_COL_BLOCKS = 65535   # CUDA grid y limit: chunk_spmm takes p <= TILE x this
+
+
+def _indptr(sorted_rows: np.ndarray, n: int) -> np.ndarray:
+    return np.concatenate([[0], np.cumsum(np.bincount(
+        sorted_rows, minlength=n))]).astype(np.int64)
+
+
+class ChunkPlan:
+    """Row pointers and gather columns of a pattern's entries, in one
+    order.
+
+    A row plan (:func:`build_chunk_plan`) keeps the pattern's own
+    row-sorted order (``perm`` is None): ``n`` output rows, gather
+    columns in ``[0, m)``.  A transpose plan
+    (:func:`build_chunk_plan_transpose`) sorts the entries by (column,
+    row): its ``n`` rows are the pattern's columns, its gather columns
+    the pattern's rows, and ``perm[d]`` is the pattern entry at its
+    position ``d`` (``inv`` the inverse).  ``T`` is the other plan of the
+    same pattern, so ``plan.T.T is plan``.
+
+    Host arrays are numpy int64; :meth:`maps` gives them per device.
+    """
+
+    def __init__(self, n: int, m: int, indptr: np.ndarray, cols: np.ndarray,
+                 perm: Optional[np.ndarray] = None,
+                 inv: Optional[np.ndarray] = None,
+                 transpose: Optional["ChunkPlan"] = None):
+        self.n, self.m = int(n), int(m)
+        self.indptr, self.cols = indptr, cols
+        self.perm, self.inv = perm, inv
+        self._T = transpose
+        self._dev = {}
+
+    @property
+    def nnz(self) -> int:
+        return len(self.cols)
+
+    @property
+    def T(self) -> "ChunkPlan":
+        if self._T is None:        # a row plan's transpose, made at first use
+            rows = np.repeat(np.arange(self.n, dtype=np.int64),
+                             np.diff(self.indptr))
+            self._T = _transpose_plan(rows, self.cols, self.n, self.m, self)
+        return self._T
+
+    def maps(self, device) -> dict:
+        """``indptr`` and ``cols`` (and a transpose plan's ``perm`` and
+        ``inv``) as int64 tensors on ``device`` (cached)."""
+        device = torch.device(device)
+        d = self._dev.get(device)
+        if d is None:
+            names = ["indptr", "cols"] + (
+                [] if self.perm is None else ["perm", "inv"])
+            d = self._dev[device] = {
+                k: torch.from_numpy(getattr(self, k)).to(device)
+                for k in names}
+        return d
+
+    def to_T(self, values: torch.Tensor) -> torch.Tensor:
+        """(nnz,) values in this plan's entry order -> in ``T``'s order
+        (the K3 gather; differentiable, its backward the inverse
+        gather)."""
+        if self.perm is None:
+            d = self.T.maps(values.device)
+            return WindowGather.apply(values, d["perm"], d["inv"])
+        d = self.maps(values.device)
+        return WindowGather.apply(values, d["inv"], d["perm"])
+
+
+def _transpose_plan(rows, cols, n, m, row_plan: ChunkPlan) -> ChunkPlan:
+    # by column, then row: the JAX package's native.lexsort_rowcol(cols,
+    # rows, n), whose numpy path is this same stable lexsort
+    perm = np.lexsort((rows, cols)).astype(np.int64)
+    inv = np.empty_like(perm)
+    inv[perm] = np.arange(len(perm), dtype=np.int64)
+    return ChunkPlan(m, n, _indptr(cols[perm], m), rows[perm], perm=perm,
+                     inv=inv, transpose=row_plan)
+
+
+@lru_cache(maxsize=64)
+def build_chunk_plan(rows_sa, cols_sa, n: int, m: int) -> Optional[ChunkPlan]:
+    """Row plan of a static 1-D pattern in its natural order, or None
+    when it has no entries or its rows are not sorted (the generic
+    branch then runs).  Cached on the content hash of the index
+    arrays."""
+    rows = rows_sa.arr
+    if rows.ndim != 1 or len(rows) == 0:
+        return None
+    rows = rows.astype(np.int64)
+    if (np.diff(rows) < 0).any():
+        return None
+    return ChunkPlan(n, m, _indptr(rows, n), cols_sa.arr.astype(np.int64))
+
+
+def build_chunk_plan_transpose(rows_sa, cols_sa, n: int,
+                               m: int) -> Optional[ChunkPlan]:
+    """Plan of Aᵀ, ``build_chunk_plan(...).T``: the entries sorted by
+    (column, row), ``perm`` their order; None where there is no row
+    plan.  (The JAX package plans Aᵀ of unsorted rows too, for its p = 1
+    transpose; here such patterns take the generic branch throughout.)"""
+    row_plan = build_chunk_plan(rows_sa, cols_sa, n, m)
+    return None if row_plan is None else row_plan.T
+
+
+# --------------------------------------------------------------------------
+# the three kernels: wrappers and their plain versions
+# --------------------------------------------------------------------------
+
+def _entry_rows(indptr: torch.Tensor) -> torch.Tensor:
+    n = indptr.shape[0] - 1
+    return torch.repeat_interleave(
+        torch.arange(n, device=indptr.device), indptr.diff())
+
+
+def chunk_spmm_plain(indptr, cols, values, B):
+    """Plain PyTorch version of :func:`chunk_spmm` (bf16 accumulates in
+    f32, as the kernel does)."""
+    acc = _build.acc_dtype(B.dtype)
+    prod = values.to(acc)[:, None] * B.to(acc).index_select(0, cols)
+    out = torch.zeros((indptr.shape[0] - 1, B.shape[1]), dtype=acc,
+                      device=B.device)
+    return out.index_add_(0, _entry_rows(indptr), prod).to(B.dtype)
+
+
+def _shapes(name, *tensors):
+    return ValueError(f"{name}: bad operand shapes " + ", ".join(
+        str(tuple(t.shape)) for t in tensors))
+
+
+def chunk_spmm(indptr: torch.Tensor, cols: torch.Tensor,
+               values: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
+    """``out[r, :] = Σ_{e in [indptr[r], indptr[r+1])} values[e] ·
+    B[cols[e], :]``: int64 indptr (n+1,) and cols (nnz,), values (nnz,),
+    B (m, p) -> (n, p).
+
+    CPU tensors take :func:`chunk_spmm_plain`; CUDA tensors launch
+    ``csrc/chunk_spmm.cu`` and raise on what it does not take.
+    """
+    if all(t.device.type == "cpu" for t in (indptr, cols, values, B)):
+        return chunk_spmm_plain(indptr, cols, values, B)
+    suffix = _build.cuda_operands("chunk_spmm", (values, B), (indptr, cols))
+    if indptr.ndim != 1 or values.shape != cols.shape or cols.ndim != 1 \
+            or B.ndim != 2:
+        raise _shapes("chunk_spmm", indptr, cols, values, B)
+    n, p = indptr.shape[0] - 1, B.shape[1]
+    if p > TILE * MAX_COL_BLOCKS:
+        raise ValueError(f"chunk_spmm: takes p <= {TILE * MAX_COL_BLOCKS}, "
+                         f"got {p}")
+    out = torch.empty((n, p), dtype=B.dtype, device=B.device)
+    if out.numel() == 0:
+        return out
+    _build.launch("chunk_spmm", f"tsgu_chunk_spmm_{suffix}", indptr, cols,
+                  values, B, out, n, p)
+    chunk_spmm.launches += 1
+    return out
+
+
+chunk_spmm.launches = 0
+
+
+def chunk_sddmm_plain(indptr, cols, X, Y):
+    """Plain PyTorch version of :func:`chunk_sddmm`."""
+    acc = _build.acc_dtype(X.dtype)
+    Xe = X.to(acc).index_select(0, _entry_rows(indptr))
+    return (Xe * Y.to(acc).index_select(0, cols)).sum(-1).to(X.dtype)
+
+
+def chunk_sddmm(indptr: torch.Tensor, cols: torch.Tensor, X: torch.Tensor,
+                Y: torch.Tensor) -> torch.Tensor:
+    """``out[e] = dot(X[r, :], Y[cols[e], :])`` for the entries ``e`` of
+    row ``r`` (``[indptr[r], indptr[r+1])``), in entry order: X (n, p),
+    Y (m, p) -> (nnz,).
+
+    CPU tensors take :func:`chunk_sddmm_plain`; CUDA tensors launch
+    ``csrc/chunk_sddmm.cu`` and raise on what it does not take.
+    """
+    if all(t.device.type == "cpu" for t in (indptr, cols, X, Y)):
+        return chunk_sddmm_plain(indptr, cols, X, Y)
+    suffix = _build.cuda_operands("chunk_sddmm", (X, Y), (indptr, cols))
+    if indptr.ndim != 1 or cols.ndim != 1 or X.ndim != 2 or Y.ndim != 2 \
+            or X.shape[1] != Y.shape[1] or X.shape[0] != indptr.shape[0] - 1:
+        raise _shapes("chunk_sddmm", indptr, cols, X, Y)
+    n, p = X.shape
+    out = torch.empty(cols.shape, dtype=X.dtype, device=X.device)
+    if out.numel() == 0:
+        return out
+    _build.launch("chunk_sddmm", f"tsgu_chunk_sddmm_{suffix}", indptr, cols,
+                  X, Y, out, n, p)
+    chunk_sddmm.launches += 1
+    return out
+
+
+chunk_sddmm.launches = 0
+
+
+def chunk_spmv_plain(indptr, cols, values, x):
+    """Plain PyTorch version of :func:`chunk_spmv`."""
+    acc = _build.acc_dtype(x.dtype)
+    out = torch.zeros(indptr.shape[0] - 1, dtype=acc, device=x.device)
+    return out.index_add_(0, _entry_rows(indptr),
+                          values.to(acc) * x.to(acc)[cols]).to(x.dtype)
+
+
+def chunk_spmv(indptr: torch.Tensor, cols: torch.Tensor,
+               values: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """``y[r] = Σ_{e in [indptr[r], indptr[r+1])} values[e] · x[cols[e]]``:
+    x (m,) -> (n,).
+
+    CPU tensors take :func:`chunk_spmv_plain`; CUDA tensors launch
+    ``csrc/chunk_spmv.cu`` and raise on what it does not take.
+    """
+    if all(t.device.type == "cpu" for t in (indptr, cols, values, x)):
+        return chunk_spmv_plain(indptr, cols, values, x)
+    suffix = _build.cuda_operands("chunk_spmv", (values, x), (indptr, cols))
+    if indptr.ndim != 1 or values.shape != cols.shape or cols.ndim != 1 \
+            or x.ndim != 1:
+        raise _shapes("chunk_spmv", indptr, cols, values, x)
+    n = indptr.shape[0] - 1
+    out = torch.empty(n, dtype=x.dtype, device=x.device)
+    if n == 0:
+        return out
+    _build.launch("chunk_spmv", f"tsgu_chunk_spmv_{suffix}", indptr, cols,
+                  values, x, out, n)
+    chunk_spmv.launches += 1
+    return out
+
+
+chunk_spmv.launches = 0
+
+
+# --------------------------------------------------------------------------
+# differentiable Functions
+# --------------------------------------------------------------------------
+
+class ChunkSpmm(torch.autograd.Function):
+    """Differentiable ``A @ B`` over a :class:`ChunkPlan`, ``values`` in
+    the plan's entry order; p = 1 runs :func:`chunk_spmv`, wider B
+    :func:`chunk_spmm`.
+
+    Backward: ``d_values = ChunkSddmm(plan, G, B)`` and
+    ``d_B = ChunkSpmm(plan.T, plan.to_T(values), G)``.
+    """
+
+    @staticmethod
+    def forward(ctx, plan, values, B):
+        ctx.plan = plan
+        ctx.save_for_backward(values, B)
+        d = plan.maps(B.device)
+        values, B = values.contiguous(), B.contiguous()
+        if B.shape[1] == 1:
+            return chunk_spmv(d["indptr"], d["cols"], values,
+                              B.view(-1)).view(-1, 1)
+        return chunk_spmm(d["indptr"], d["cols"], values, B)
+
+    @staticmethod
+    def backward(ctx, G):
+        values, B = ctx.saved_tensors
+        plan = ctx.plan
+        d_values = d_B = None
+        if ctx.needs_input_grad[1]:
+            d_values = ChunkSddmm.apply(plan, G, B)
+        if ctx.needs_input_grad[2]:
+            d_B = ChunkSpmm.apply(plan.T, plan.to_T(values), G)
+        return None, d_values, d_B
+
+
+class ChunkSddmm(torch.autograd.Function):
+    """Differentiable ``dot(X[row_e], Y[col_e])`` at a :class:`ChunkPlan`'s
+    entries, in its entry order.
+
+    Backward: ``d_X = ChunkSpmm(plan, ct, Y)`` and
+    ``d_Y = ChunkSpmm(plan.T, plan.to_T(ct), X)``.
+    """
+
+    @staticmethod
+    def forward(ctx, plan, X, Y):
+        ctx.plan = plan
+        ctx.save_for_backward(X, Y)
+        d = plan.maps(X.device)
+        return chunk_sddmm(d["indptr"], d["cols"], X.contiguous(),
+                           Y.contiguous())
+
+    @staticmethod
+    def backward(ctx, ct):
+        X, Y = ctx.saved_tensors
+        plan = ctx.plan
+        d_X = d_Y = None
+        if ctx.needs_input_grad[1]:
+            d_X = ChunkSpmm.apply(plan, ct, Y)
+        if ctx.needs_input_grad[2]:
+            d_Y = ChunkSpmm.apply(plan.T, plan.to_T(ct), X)
+        return None, d_X, d_Y

@@ -27,9 +27,13 @@ calling the Functions again, so higher derivatives work.
 
 A plan is built on the host from the pattern (numpy, as in the JAX
 package) and cached on the pattern's content hash.  The entries off the
-selected diagonals of a hybrid pattern form a residual, which takes the
-JAX package's gather + segment-sum branch in plain PyTorch
-(``index_select`` + ``index_add``).
+selected diagonals of a hybrid pattern form a residual, a general
+row-sorted sub-pattern.  On the card a residual of at least
+``RESID_MIN_NNZ`` entries runs the chunk engine (``kernels/chunk_spmm.py``,
+as the JAX package routes it when ``_resid_chunk_ok`` holds); smaller
+ones, and every residual on the CPU, take the JAX package's gather +
+segment-sum branch in plain PyTorch (``index_select`` + ``index_add``).
+:data:`RESID_ENGINE` forces either route.
 
 Example:
     >>> import torch
@@ -53,7 +57,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..types import StaticArray
 from . import _build
+from .chunk_spmm import ChunkSddmm, ChunkSpmm, build_chunk_plan
 from .window_gather import WindowGather
 
 MAX_DIAGS = 256          # offsets above this: not DIA-structured
@@ -316,16 +322,11 @@ def _shifted_rows(offsets, X: torch.Tensor, n: int, acc: torch.dtype):
         yield k, Xp[off + lo:off + lo + n]
 
 
-def _acc_dtype(dtype: torch.dtype) -> torch.dtype:
-    return torch.float32 if dtype in (torch.bfloat16, torch.float16) \
-        else dtype
-
-
 def spmm_core_plain(offsets, grid: torch.Tensor, B: torch.Tensor):
     """Plain PyTorch version of :func:`spmm_core` (bf16 accumulates in
     f32, as the kernel does).  ``offsets`` may be a tensor or a list."""
     n = grid.shape[0]
-    acc = _acc_dtype(grid.dtype)
+    acc = _build.acc_dtype(grid.dtype)
     g = grid.to(acc)
     out = torch.zeros((n, B.shape[1]), dtype=acc, device=B.device)
     for k, Bs in _shifted_rows(offsets, B, n, acc):
@@ -367,7 +368,7 @@ spmm_core.launches = 0
 def sddmm_core_plain(offsets, X: torch.Tensor, Y: torch.Tensor):
     """Plain PyTorch version of :func:`sddmm_core`."""
     n = X.shape[0]
-    acc = _acc_dtype(X.dtype)
+    acc = _build.acc_dtype(X.dtype)
     Xa = X.to(acc)
     cols = [(Xa * Ys).sum(dim=1) for _, Ys in _shifted_rows(offsets, Y, n,
                                                              acc)]
@@ -458,19 +459,54 @@ class DiaSddmmCore(torch.autograd.Function):
 
 
 # --------------------------------------------------------------------------
-# hybrid residual: the JAX package's gather + segment-sum branch
+# hybrid residual: the chunk engine, or the gather + segment-sum branch
 # --------------------------------------------------------------------------
+
+RESID_MIN_NNZ = 4096     # below this the gather + index_add branch is fine
+# Route of the residual, in place of the JAX package's TSGU_RESID_ENGINE:
+# "auto" (chunk engine on CUDA tensors for residuals of RESID_MIN_NNZ
+# entries or more), "chunk" (always, also on the CPU, where the kernels'
+# plain versions run), "xla" (never).  Tests monkeypatch it.
+RESID_ENGINE = "auto"
+
+
+@lru_cache(maxsize=64)
+def _resid_chunk_plan(plan: DiaPlan):
+    """Chunk row plan of the residual sub-pattern (its transpose is
+    ``.T``), cached per DiaPlan (id-hashed; DiaPlans are themselves
+    cached by content).  The residual keeps the pattern's row-major
+    order, so the plan always exists."""
+    return build_chunk_plan(StaticArray(plan.resid_rows),
+                            StaticArray(plan.resid_cols), plan.n, plan.m)
+
+
+def _resid_chunk_ok(plan: DiaPlan, device: torch.device) -> bool:
+    """Whether the hybrid residual runs on the chunk engine.  Unlike the
+    JAX package there is no gate on p or dtype: the CUDA kernels pad
+    nothing and take f32, bf16 and f64."""
+    if not plan.is_hybrid or RESID_ENGINE == "xla":
+        return False
+    return RESID_ENGINE == "chunk" or (
+        device.type == "cuda" and len(plan.resid_sel) >= RESID_MIN_NNZ)
+
 
 def _resid_spmm(plan: DiaPlan, rvals, B):
     """Residual entries' share of A @ B."""
+    if _resid_chunk_ok(plan, B.device):
+        return ChunkSpmm.apply(_resid_chunk_plan(plan), rvals, B)
     d = plan.maps(B.device)
     prod = rvals[:, None] * B.index_select(0, d["resid_cols"])
     out = torch.zeros((plan.n, B.shape[1]), dtype=B.dtype, device=B.device)
     return out.index_add(0, d["resid_rows"], prod)
 
 
-def _resid_spmm_t(plan: DiaPlan, rvals, G):
-    """Residual entries' share of Aᵀ @ G."""
+def _resid_spmm_t(plan: DiaPlan, rvals, G, rvals_t=None):
+    """Residual entries' share of Aᵀ @ G; ``rvals_t`` may pass the
+    residual values already in the transpose plan's order."""
+    if _resid_chunk_ok(plan, G.device):
+        rp = _resid_chunk_plan(plan)
+        return ChunkSpmm.apply(rp.T, rp.to_T(rvals) if rvals_t is None
+                               else rvals_t, G)
     d = plan.maps(G.device)
     prod = rvals[:, None] * G.index_select(0, d["resid_rows"])
     out = torch.zeros((plan.m, G.shape[1]), dtype=G.dtype, device=G.device)
@@ -479,6 +515,8 @@ def _resid_spmm_t(plan: DiaPlan, rvals, G):
 
 def _resid_sddmm(plan: DiaPlan, X, Y):
     """(X @ Yᵀ) at the residual entries."""
+    if _resid_chunk_ok(plan, X.device):
+        return ChunkSddmm.apply(_resid_chunk_plan(plan), X, Y)
     d = plan.maps(X.device)
     return (X.index_select(0, d["resid_rows"])
             * Y.index_select(0, d["resid_cols"])).sum(-1)
@@ -537,10 +575,14 @@ def prepared_matvec(plan: DiaPlan, values: torch.Tensor, transpose: bool):
     rv = resid_values(plan, values) if plan.is_hybrid else None
     if transpose:
         geo_t, gv_t = plan.geo.T, plan.geo.shift(gv)
+        rv_t = None
+        if rv is not None and _resid_chunk_ok(plan, values.device):
+            rv_t = _resid_chunk_plan(plan).to_T(rv)
 
         def mv_t(x):
             out = DiaSpmmCore.apply(geo_t, gv_t, x)
-            return out if rv is None else out + _resid_spmm_t(plan, rv, x)
+            return out if rv is None else out + _resid_spmm_t(plan, rv, x,
+                                                              rv_t)
 
         return mv_t
 

@@ -7,18 +7,30 @@ Port of ``torchsparsegradutils_tpu/ops/spmm.py``:
   ``Aᵀ G``.  Nothing of the dense ``(n, m)`` shape is built.
 * ``sddmm(A, X, Y)``: ``dot(X[i], Y[j])`` at A's pattern.
 
-Dispatch, per 2-D pattern:
+Dispatch, per 2-D pattern (the JAX package's ``_spmm_forward`` and
+``_sddmm_values``):
 
 * ``backend="auto"`` or ``"dia"``: the DIA engine (``kernels/dia.py``)
   when the pattern qualifies; ``"dia"`` raises when it does not.
-* ``"xla"``, and patterns with no DIA plan: the JAX package's generic
-  gather + segment-sum branch, in PyTorch ``index_select`` +
-  ``index_add``.
-* ``"pallas"`` and ``"ell"``: the chunk and ELL engines are not ported
-  yet; they raise ``NotImplementedError``.
+* ``"pallas"``: the chunk engine (``kernels/chunk_spmm.py``) on any
+  device; on the CPU its kernels' plain versions run.
+* ``"auto"`` on CUDA tensors, for a pattern with no DIA plan: the chunk
+  engine.  On the CPU ``"auto"`` keeps the generic branch, as the JAX
+  package does off the TPU.
+* ``"xla"``, and patterns with no plan (the chunk engine needs rows in
+  sorted order): the JAX package's generic gather + segment-sum branch,
+  in PyTorch ``index_select`` + ``index_add``.
+* ``"ell"``: the ELL engine is not ported yet; it raises
+  ``NotImplementedError``.
+
+The JAX package gates the chunk engine at p >= 32 and f32/bf16, because
+its kernels pad p to 128 lanes and compute in f32; the CUDA kernels pad
+nothing and take f32, bf16 and f64, so ``"auto"`` routes every p and all
+three dtypes to them (``ROADMAP.md`` section 3).
 
 The gradients come from autograd through differentiable pieces: the DIA
-engine's Functions (whose backwards call each other) and PyTorch's
+and chunk engines' Functions (whose backwards call each other; ``Aᵀ G``
+runs the chunk SpMM over the transpose plan at every p) and PyTorch's
 gather and scatter.  Higher derivatives work.
 
 Example:
@@ -39,22 +51,23 @@ from typing import Union
 
 import torch
 
+from ..kernels.chunk_spmm import ChunkSddmm, ChunkSpmm, build_chunk_plan
 from ..kernels.dia import build_dia_plan, dia_sddmm, dia_spmm
 from ..types import SparseCOO, SparseCSR, is_sparse
 
 __all__ = ["sparse_mm", "sddmm"]
 
-_NOT_PORTED = ("backend={!r} needs the chunk/ELL engine, which is not "
-               "ported yet (ROADMAP.md, queue 1 item 5: chunk engine); "
-               "use backend='auto', 'dia' or 'xla'")
+_NOT_PORTED = ("backend='ell' needs the ELL engine (kernels/ell.py), which "
+               "is not ported yet (ROADMAP.md, queue 1 item 10: ELL "
+               "engine); use backend='auto', 'dia', 'pallas' or 'xla'")
 
 
 def _check_backend(backend: str):
-    if backend in ("pallas", "ell"):
-        raise NotImplementedError(_NOT_PORTED.format(backend))
-    if backend not in ("auto", "dia", "xla"):
+    if backend == "ell":
+        raise NotImplementedError(_NOT_PORTED)
+    if backend not in ("auto", "dia", "pallas", "xla"):
         raise ValueError(f"unknown backend {backend!r}; expected 'auto', "
-                         "'dia' or 'xla'")
+                         "'dia', 'pallas' or 'xla'")
 
 
 def _dia_plan(A, backend: str):
@@ -75,6 +88,20 @@ def _dia_plan(A, backend: str):
     return plan
 
 
+def _chunk_plan(A, backend: str):
+    """Chunk row plan of a 2-D pattern when the chunk engine should run
+    it (the JAX package's ``_pallas_ok``, ``_spmv_ok`` and
+    ``_chunk_plan``), else None: on ``backend="pallas"``, or ``"auto"``
+    with A on the card; None too for unsorted rows."""
+    if not (backend == "pallas"
+            or (backend == "auto" and A.device.type == "cuda")):
+        return None
+    rs = A.row_sa()
+    if rs.arr.ndim != 1:
+        return None
+    return build_chunk_plan(rs, A.col_sa(), *A.mat_shape)
+
+
 def _fallback_spmm(n, rows, cols, values, B):
     """Generic A @ B: gather B rows, scale, segment-sum into rows."""
     prod = values[:, None] * B.index_select(0, cols)
@@ -90,6 +117,9 @@ def _spmm_2d(backend, A, B):
     plan = _dia_plan(A, backend)
     if plan is not None:
         return dia_spmm(plan, A.values, B)
+    cplan = _chunk_plan(A, backend)
+    if cplan is not None:
+        return ChunkSpmm.apply(cplan, A.values, B)
     return _fallback_spmm(A.shape[-2], A.rows_t(), A.cols_t(), A.values, B)
 
 
@@ -97,6 +127,9 @@ def _sddmm_2d(backend, A, X, Y):
     plan = _dia_plan(A, backend)
     if plan is not None:
         return dia_sddmm(plan, X, Y)
+    cplan = _chunk_plan(A, backend)
+    if cplan is not None:
+        return ChunkSddmm.apply(cplan, X, Y)
     return _fallback_sddmm(A.rows_t(), A.cols_t(), X, Y)
 
 
@@ -147,8 +180,9 @@ def sparse_mm(A: Union[SparseCOO, SparseCSR], B, *, backend: str = "auto",
         gradient lands on ``A.values``, at the stored entries only.
       B: dense ``(m, p)`` or ``(b, m, p)`` tensor on A's device; batch
         dims must match A's (one side may be unbatched and is broadcast).
-      backend: ``"auto"`` | ``"dia"`` | ``"xla"`` (``"pallas"`` and
-        ``"ell"`` raise until the chunk engine is ported).
+      backend: ``"auto"`` | ``"dia"`` | ``"pallas"`` (the chunk
+        engine) | ``"xla"`` (``"ell"`` raises until the ELL engine is
+        ported).
       grad_precision: ``"exact"`` or ``"fast"``.  In the JAX package
         ``"fast"`` only changes the chunk engine's fused backward; the
         paths ported here compute exact gradients under either.

@@ -1,20 +1,24 @@
-"""Random sparse matrices on diagonal-structured patterns.
+"""Random sparse matrices: uniform, stencil and hybrid patterns.
 
-Port of ``stencil_sparse`` and ``hybrid_sparse`` from
+Port of ``rand_sparse``, ``stencil_sparse`` and ``hybrid_sparse`` from
 ``torchsparsegradutils_tpu/utils/random_sparse.py``.  Patterns are built
-on the host with numpy (vectorised, so the cfd2-scale stencil of
-123,440 rows and 3M entries takes about a second); values are normal
-draws from an explicit CPU ``torch.Generator``, then moved to
-``device``.  The JAX package draws values from a JAX key, so the same
-seed gives other values there: tests hand both packages one matrix
-through ``convert.from_arrays``.
+on the host with numpy from a seeded ``numpy.random.Generator``
+(vectorised, so a cfd2-scale pattern of 123,440 rows and 3M entries
+takes about a second), in row-major order; values are normal draws from
+an explicit CPU ``torch.Generator``, then moved to ``device``.  The JAX
+package draws from a JAX key, so the same seed gives other matrices
+there: tests hand both packages one matrix through
+``convert.from_arrays``.
 
 Example:
     >>> from torchsparsegradutils_tpu_torch.utils.random_sparse import (
-    ...     stencil_sparse)
+    ...     rand_sparse, stencil_sparse)
     >>> A = stencil_sparse((6, 6), [-1, 0, 1], device="cpu")
     >>> A.nnz, A.layout
     (16, 'csr')
+    >>> R = rand_sparse((3, 6, 5), 7, shared_pattern=True, device="cpu")
+    >>> R.shape, R.values.shape, R.indices_batched()
+    ((3, 6, 5), torch.Size([3, 7]), False)
 """
 
 from __future__ import annotations
@@ -24,7 +28,7 @@ import torch
 
 from ..types import SparseCOO, SparseCSR
 
-__all__ = ["stencil_sparse", "hybrid_sparse"]
+__all__ = ["rand_sparse", "stencil_sparse", "hybrid_sparse"]
 
 
 def _stencil_pattern(n: int, m: int, offsets, nnz):
@@ -61,14 +65,17 @@ def _values(generator, nnz: int, dtype, device):
 
 
 def _container(layout, rows, cols, values, shape, index_dtype):
-    """Container from row-major sorted ``rows``/``cols``."""
+    """Container from row-major sorted ``rows``/``cols``, ``(nnz,)`` or
+    one pattern per batch element, ``(*batch, nnz)``."""
     idt = np.dtype(index_dtype)
     if layout == "coo":
         return SparseCOO(rows.astype(idt), cols.astype(idt), values, shape)
     if layout != "csr":
         raise ValueError(f"unknown layout {layout!r}")
-    indptr = np.concatenate([[0], np.cumsum(np.bincount(
-        rows, minlength=shape[0]))])
+    n = shape[-2]
+    indptr = np.stack([np.concatenate([[0], np.cumsum(np.bincount(
+        r, minlength=n))]) for r in rows.reshape(-1, rows.shape[-1])])
+    indptr = indptr.reshape(rows.shape[:-1] + (n + 1,))
     return SparseCSR(indptr.astype(idt), cols.astype(idt), values, shape)
 
 
@@ -95,11 +102,7 @@ def stencil_sparse(shape, offsets, *, nnz: int = None, layout: str = "csr",
         raise ValueError("well_conditioned stencil needs offset 0")
     vals = _values(generator, len(rows), dtype, "cpu")
     if well_conditioned:
-        d = torch.from_numpy(on_diag)
-        off = torch.where(d, torch.zeros_like(vals), vals)
-        rowsum = torch.zeros(n, dtype=vals.dtype).index_add(
-            0, torch.from_numpy(rows), off.abs())
-        vals = torch.where(d, rowsum[torch.from_numpy(rows)] + 1.0, off)
+        vals = _boost_diagonal(rows, cols, vals, n)
     return _container(layout, rows, cols, vals.to(device), (n, m),
                       index_dtype)
 
@@ -120,6 +123,78 @@ def _sample_unique_pairs(rng: np.random.Generator, n: int, m: int,
         want = nnz - len(keys)
     keys = rng.permutation(keys)[:nnz]
     return keys // m, keys % m
+
+
+def _boost_diagonal(rows, cols, vals, n):
+    """Diagonal entries set to 1 + Σ|off-diagonal| of their row (strict
+    diagonal dominance), the JAX package's ``well_conditioned`` rule."""
+    d = torch.from_numpy(rows == cols)
+    r = torch.from_numpy(np.asarray(rows, np.int64))
+    off = torch.where(d, torch.zeros_like(vals), vals)
+    rowsum = torch.zeros(n, dtype=vals.dtype).index_add(0, r, off.abs())
+    return torch.where(d, rowsum[r] + 1.0, off)
+
+
+def _rand_pattern(rng, n: int, m: int, nnz: int, well_conditioned: bool):
+    """Row-major ``(rows, cols)`` of ``nnz`` distinct uniform entries;
+    with ``well_conditioned`` the full diagonal plus ``nnz - n`` others,
+    padded back to ``nnz`` with entries at (0, 0) as the JAX package
+    does (their values are set to 0)."""
+    if not well_conditioned:
+        rows, cols = _sample_unique_pairs(rng, n, m, nnz)
+    else:
+        if n != m:
+            raise ValueError("well_conditioned requires a square matrix")
+        if nnz < n:
+            raise ValueError(f"well_conditioned requires nnz >= n ({n})")
+        oi, oj = _sample_unique_pairs(rng, n, n, nnz - n)
+        keep = oi != oj
+        pad = nnz - n - int(keep.sum())
+        rows = np.concatenate([np.arange(n), oi[keep], np.zeros(pad, int)])
+        cols = np.concatenate([np.arange(n), oj[keep], np.zeros(pad, int)])
+    order = np.lexsort((cols, rows))
+    return rows[order].astype(np.int64), cols[order].astype(np.int64)
+
+
+def rand_sparse(shape, nnz: int, *, layout: str = "coo", dtype=torch.float32,
+                index_dtype=np.int32, well_conditioned: bool = False,
+                shared_pattern: bool = False, generator=None, seed: int = 0,
+                device="cuda"):
+    """Random matrix with exactly ``nnz`` distinct entries, uniform over
+    the shape, in row-major order.
+
+    Args:
+      shape: ``(n, m)`` or batched ``(*batch, n, m)``: one pattern per
+        element unless ``shared_pattern``.
+      well_conditioned: square matrices only; the full diagonal is among
+        the ``nnz`` entries and set above its row's off-diagonal sum, so
+        the matrix is comfortably invertible.
+      generator: CPU ``torch.Generator`` for the values (seed 0 if None).
+      seed: seed of the numpy generator that draws the patterns.
+      device: where the values go.
+    """
+    *batch, n, m = (int(s) for s in shape)
+    rng = np.random.default_rng(seed)
+    gen = generator if generator is not None else \
+        torch.Generator().manual_seed(0)
+    bsz = int(np.prod(batch))                       # 1 when unbatched
+    n_pats = 1 if shared_pattern else bsz
+    pats = [_rand_pattern(rng, n, m, nnz, well_conditioned)
+            for _ in range(n_pats)]
+    vals = []
+    for i in range(bsz):
+        rows, cols = pats[i % n_pats]
+        v = _values(gen, nnz, dtype, "cpu")
+        if well_conditioned:
+            v = _boost_diagonal(rows, cols, v, n)
+            v[torch.from_numpy(np.nonzero((rows == 0) & (cols == 0))[0][1:])
+              ] = 0
+        vals.append(v)
+    rows, cols = (np.stack(x).reshape(*batch, nnz) for x in zip(*pats)) \
+        if n_pats > 1 else pats[0]
+    values = torch.stack(vals).reshape(*batch, nnz).to(device)
+    return _container(layout, rows, cols, values, (*batch, n, m),
+                      index_dtype)
 
 
 def hybrid_sparse(shape, offsets, nnz: int, *, dia_coverage: float,
