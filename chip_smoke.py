@@ -28,10 +28,21 @@ script exits non-zero without its last line:
    against a dense product, and checks that each kernel of each path
    launched during its run (counters set to 0 just before, read just
    after);
+   ``sparse_triangular_solve`` forward and backward on two patterns:
+   *tri-stencil*, the stencil's lower triangle (13 offsets, diagonally
+   dominant) at p = 128 and p = 2, its upper mirror and its transposed
+   solve, on the banded kernel; *tri-random*, a random lower factor of
+   1,543,949 entries at p = 2, on the route ``auto`` picks.  It checks the
+   relative residual ``|A x - B| / |B|`` through ``sparse_mm``, the
+   gradients against another algorithm on the card, a small case against
+   a dense solve, and the launch counters (the triangular kernel also
+   against its plain version at the cfd2 shapes and small awkward ones in
+   phase 2);
 4. times the chained forward and forward+backward steps, profiles
-   four of them, and times each kernel, its plain version and one
-   PyTorch library call that computes the same function, with CUDA
-   events, and prints them as a ``{"kernels": [...]}`` line;
+   six of them, times the triangular solve's host plans, and times each
+   kernel, its plain version and one PyTorch library call that computes
+   the same function, with CUDA events, and prints them as a
+   ``{"kernels": [...]}`` line;
 5. prints ``{"ok": true, "device": {...}}`` as the last line.
 
 Without a CUDA device it exits 1 and prints no result.
@@ -49,12 +60,18 @@ NNZ_RANDOM = 3_087_898  # bench.py's uniform random regime at cfd2 scale
 STENCIL_OFFSETS = sorted({0, 1, -1, 2, -2, 3, -3, 49, -49, 50, -50, 51,
                           -51, 2401, -2401, 2449, -2449, 2450, -2450,
                           2451, -2451, 2499, -2499, 2500, -2500})
+TRI_OFFSETS = [o for o in STENCIL_OFFSETS if o <= 0]   # its lower triangle
+NNZ_TRI_RANDOM = 1_543_949  # benchmarks/probe_tri.py:34-36, the cfd2 factor
 HBM_BYTES_S = 3.35e12   # H100 SXM data sheet
 F32_FLOP_S = 67e12      # H100 SXM data sheet, float32 outside tensor cores
 TOL = {"float32": (1e-5, 1e-5), "bfloat16": (2e-2, 1e-5),
        "float64": (1e-12, 1e-12)}  # (rtol, atol as a fraction of max|ref|)
+TRI_TOL = (1e-3, 1e-4)  # (rtol, atol): tri gradients across algorithms
 DIA_KERNELS = ("dia_spmm", "dia_sddmm", "gather")
 CHUNK_KERNELS = ("chunk_spmm", "chunk_sddmm", "gather")
+TRI_KERNELS = ("tri_dia", "dia_sddmm", "gather")
+TRI_RANDOM_KERNELS = ("chunk_sddmm", "gather")
+ROUTES = []             # triangular-solve routes taken, in order
 
 
 def smi_line() -> str:
@@ -65,16 +82,17 @@ def smi_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def close(name, got, ref, dtype_name):
-    """Max |got - ref| after checking |got - ref| <= atol + rtol |ref|."""
+def close(name, got, ref, dtype_name, tol=None):
+    """Max |got - ref| after checking |got - ref| <= atol + rtol |ref|;
+    ``tol`` gives (rtol, absolute atol) in place of ``TOL``."""
     import torch
-    rtol, atol_frac = TOL[dtype_name]
+    rtol, atol_frac = TOL[dtype_name] if tol is None else tol
     got, ref = got.double(), ref.double()
     if got.shape != ref.shape or not torch.isfinite(got).all():
         raise AssertionError(f"{name}: shape {tuple(got.shape)} vs "
                              f"{tuple(ref.shape)} or non-finite values")
     err = (got - ref).abs()
-    atol = atol_frac * ref.abs().max().item()
+    atol = atol_frac * (ref.abs().max().item() if tol is None else 1.0)
     bad = err > atol + rtol * ref.abs()
     if bad.any():
         raise AssertionError(
@@ -145,11 +163,28 @@ def counters():
         chunk_sddmm, chunk_spmm, chunk_spmv)
     from torchsparsegradutils_tpu_torch.kernels.dia import (sddmm_core,
                                                             spmm_core)
+    from torchsparsegradutils_tpu_torch.kernels.dia_tri import tri_dia_core
     from torchsparsegradutils_tpu_torch.kernels.window_gather import (
         window_gather)
     return {"dia_spmm": spmm_core, "dia_sddmm": sddmm_core,
             "gather": window_gather, "chunk_spmm": chunk_spmm,
-            "chunk_sddmm": chunk_sddmm, "chunk_spmv": chunk_spmv}
+            "chunk_sddmm": chunk_sddmm, "chunk_spmv": chunk_spmv,
+            "tri_dia": tri_dia_core}
+
+
+def track_routes():
+    """Record in ``ROUTES`` each block or wave solve of the triangular
+    solve (the banded route shows in the ``tri_dia`` counter)."""
+    from torchsparsegradutils_tpu_torch.ops import triangular_solve as ts
+    for name, label in (("_blocked_tri_solve", "block"),
+                        ("_wave_tri_solve", "wave"),
+                        ("tri_dia_core", "dia")):
+        fn = getattr(ts, name)
+
+        def wrapped(*a, _fn=fn, _label=label, **k):
+            ROUTES.append(_label)
+            return _fn(*a, **k)
+        setattr(ts, name, wrapped)
 
 
 def zero_counters():
@@ -191,6 +226,48 @@ def drive(label, A, B, G, expect):
     for name, got, r in zip(("out", "gradA", "gradB"), (out, gv, gb), ref):
         close(f"{label} {name} vs generic path", got, r, "float32")
     return launches
+
+
+def tri_fwd_bwd(A, B, G, **kw):
+    import torch
+    from torchsparsegradutils_tpu_torch import sparse_triangular_solve
+    v = A.values.detach().clone().requires_grad_(True)
+    b = B.detach().clone().requires_grad_(True)
+    x = sparse_triangular_solve(A.with_data(v), b, **kw)
+    gv, gb = torch.autograd.grad(x, (v, b), G)
+    return x, gv, gb
+
+
+def residual(A, x, B, transpose):
+    """|op(A) x - B| / |B| through the port's sparse_mm, for the
+    triangle that ``upper`` selects (the whole pattern here)."""
+    from torchsparsegradutils_tpu_torch import sparse_mm
+    Ax = sparse_mm(A.T if transpose else A, x)
+    return ((Ax - B).norm() / B.norm()).item()
+
+
+def drive_tri(label, A, B, G, expect, ref_algorithm=None, **kw):
+    """One fwd+bwd of the triangular solve through the public entry, the
+    counters set to 0 just before and read just after; the residual
+    check; with ``ref_algorithm`` the output and gradients against that
+    algorithm on the card."""
+    import torch
+    zero_counters()
+    ROUTES.clear()
+    x, gv, gb = tri_fwd_bwd(A, B, G, **kw)
+    launches = read_counters(label, expect)
+    print(f"  {label}: routes forward {ROUTES[:1]}, backward {ROUTES[1:]}")
+    res = residual(A, x, B, kw.get("transpose", False))
+    print(f"  {label}: relative residual {res:.3e}")
+    if not res <= 1e-5:
+        raise AssertionError(f"{label}: relative residual {res:.3e} > 1e-5")
+    if ref_algorithm is not None:
+        ref = tri_fwd_bwd(A, B, G, **dict(kw, algorithm=ref_algorithm))
+        for name, got, r in zip(("x", "gradA", "gradB"), (x, gv, gb), ref):
+            close(f"{label} {name} vs algorithm={ref_algorithm}", got, r,
+                  "float32", TRI_TOL)
+    torch.cuda.synchronize()
+    return launches, list(ROUTES)
 
 
 def sddmm_fwd_bwd(A, X, Y, C, backend):
@@ -252,6 +329,29 @@ def check_chunk_kernels(label, plan, vals, B, X, dt_name):
     return err
 
 
+def check_tri_small(dt, name, gen, dev):
+    """The triangular kernel on small awkward shapes: n not a multiple of
+    the block, p = 1 and 3, unit, positive offsets (ignored), the span at a
+    block boundary, and 200 offsets (the generic loops)."""
+    import numpy as np
+    import torch
+    from torchsparsegradutils_tpu_torch.kernels.dia_tri import (
+        tri_dia_core, tri_dia_core_plain)
+    for n, p, offs, unit in ((300, 1, [-130, -17, -3, 0], False),
+                             (500, 3, [-256, -1, 0, 5], False),
+                             (777, 5, [-300, -2, -1, 7], True),
+                             (1000, 2, list(range(-200, 1)), False)):
+        g = torch.randn(n, len(offs), generator=gen) * 0.1
+        if 0 in offs:
+            k0 = offs.index(0)
+            g[:, k0] = 1 + g.abs().sum(1) - g[:, k0].abs()
+        g = g.to(dev, dt)
+        b = torch.randn(n, p, generator=gen).to(dev, dt)
+        close(f"tri_dia small n={n} p={p} K={len(offs)} unit={unit}",
+              tri_dia_core(np.array(offs), g, b, unit=unit),
+              tri_dia_core_plain(np.array(offs), g, b, unit=unit), name)
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -266,10 +366,13 @@ def main() -> int:
     from torchsparsegradutils_tpu_torch.kernels.dia import (
         build_dia_plan, sddmm_core, sddmm_core_plain, spmm_core,
         spmm_core_plain, values_to_grid)
+    from torchsparsegradutils_tpu_torch.kernels.dia_tri import (
+        tri_dia_core, tri_dia_core_plain)
     from torchsparsegradutils_tpu_torch.kernels.window_gather import (
         window_gather, window_gather_plain)
+    from torchsparsegradutils_tpu_torch.ops import triangular_solve as ts
     from torchsparsegradutils_tpu_torch.utils.random_sparse import (
-        hybrid_sparse, rand_sparse, stencil_sparse)
+        hybrid_sparse, rand_sparse, rand_sparse_tri, stencil_sparse)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -305,6 +408,11 @@ def main() -> int:
                     device=dev)
     cplan = build_chunk_plan(R.row_sa(), R.col_sa(), N, N)
     small = awkward_pattern()
+    T = stencil_sparse((N, N), TRI_OFFSETS, well_conditioned=True,
+                       generator=gen, device=dev)
+    tplan = build_dia_plan(T.row_sa(), T.col_sa(), N, N)
+    tgrid = values_to_grid(tplan, T.values)
+    TB = torch.randn(N, P, generator=gen).to(dev)
     err = {}
     for dt in (torch.float32, torch.bfloat16, torch.float64):
         name = str(dt).removeprefix("torch.")
@@ -336,6 +444,20 @@ def main() -> int:
         if dt == torch.float32:
             err = {"dia_spmm": max(e1, e2), "dia_sddmm": e3, "gather": 0.0,
                    **ec}
+        # the triangular kernel on the stencil's lower triangle
+        tg = tgrid.to(dt)
+        for tb in (TB.to(dt), TB[:, :2].contiguous().to(dt)):
+            got = tri_dia_core(tplan.offsets, tg, tb, unit=False)
+            again = tri_dia_core(tplan.offsets, tg, tb, unit=False)
+            if not torch.equal(got, again):
+                raise AssertionError(f"tri_dia p={tb.shape[1]} [{name}]: "
+                                     "two launches differ")
+            e = close(f"tri_dia p={tb.shape[1]} (repeats bitwise)", got,
+                      tri_dia_core_plain(tplan.offsets, tg, tb, unit=False),
+                      name)
+            if dt == torch.float32:
+                err["tri_dia"] = max(err.get("tri_dia", 0.0), e)
+        check_tri_small(dt, name, gen, dev)
 
     # ---- phase 3: the main path --------------------------------------------
     print(f"phase 3: sparse_mm fwd+bwd through the public entry point "
@@ -367,6 +489,48 @@ def main() -> int:
     for name, g_, r_ in zip(("values", "gradX", "gradY"), got,
                             sddmm_fwd_bwd(R, G, B, C, "xla")):
         close(f"random sddmm {name} vs generic path", g_, r_, "float32")
+
+    print(f"phase 3b: sparse_triangular_solve fwd+bwd "
+          f"({time.perf_counter() - t0:.1f} s in)")
+    from torchsparsegradutils_tpu_torch import sparse_triangular_solve
+    track_routes()
+    for lower_offs, upper in ((TRI_OFFSETS[-5:], False),
+                              ([-o for o in TRI_OFFSETS[-5:]], True)):
+        St = stencil_sparse((2000, 2000), lower_offs, well_conditioned=True,
+                            generator=gen, device=dev)
+        Rt = rand_sparse_tri((2000, 2000), 25_000, upper=upper,
+                             layout="csr", generator=gen, device=dev)
+        bs = torch.randn(2000, 3, generator=gen).to(dev)
+        for what, M in (("stencil", St), ("random", Rt)):
+            for tr in (False, True):
+                Md = M.todense().double()
+                close(f"small tri-{what} upper={upper} transpose={tr} vs "
+                      "dense f64", sparse_triangular_solve(
+                          M, bs, upper=upper, transpose=tr),
+                      torch.linalg.solve_triangular(
+                          Md.T if tr else Md, bs.double(),
+                          upper=upper != tr), "float32")
+    GT = torch.randn(N, P, generator=gen).to(dev)
+    TB2, GT2 = TB[:, :2].contiguous(), GT[:, :2].contiguous()
+    launches_t, _ = drive_tri("tri-stencil p=128", T, TB, GT, TRI_KERNELS,
+                              ref_algorithm="block", upper=False)
+    drive_tri("tri-stencil p=2", T, TB2, GT2, TRI_KERNELS,
+              ref_algorithm="block", upper=False)
+    Tu = stencil_sparse((N, N), [-o for o in TRI_OFFSETS],
+                        well_conditioned=True, generator=gen, device=dev)
+    drive_tri("tri-stencil upper mirror p=128", Tu, TB, GT, TRI_KERNELS,
+              upper=True)
+    drive_tri("tri-stencil transpose p=128", T, TB, GT, TRI_KERNELS,
+              upper=False, transpose=True)
+    TR = rand_sparse_tri((N, N), NNZ_TRI_RANDOM, upper=False, layout="csr",
+                         generator=gen, device=dev)
+    t_first = time.perf_counter()
+    launches_tr, routes_tr = drive_tri("tri-random p=2", TR, TB2, GT2,
+                                       TRI_RANDOM_KERNELS, upper=False)
+    t_first = time.perf_counter() - t_first
+    other = "wave" if routes_tr[0] == "block" else "block"
+    drive_tri("tri-random p=2 (again)", TR, TB2, GT2, TRI_RANDOM_KERNELS,
+              ref_algorithm=other, upper=False)
 
     # ---- phase 4: timing ---------------------------------------------------
     print(f"phase 4: timing ({time.perf_counter() - t0:.1f} s in)")
@@ -405,7 +569,79 @@ def main() -> int:
         "random_fwd_bwd_ms": time_ms(chain_step(R, B, G), reps=50),
         "random_p1_fwd_bwd_ms": time_ms(chain_step(R, B1, G1), reps=50),
     }
-    print(json.dumps({"main_path": steps, "card": card}))
+
+    def chain_tri(A, B, G, **kw):
+        state = {"v": A.values.detach().clone(), "b": B.clone()}
+
+        def step():
+            v = state["v"].requires_grad_(True)
+            b = state["b"].requires_grad_(True)
+            x = sparse_triangular_solve(A.with_data(v), b, **kw)
+            gv, gb = torch.autograd.grad(x, (v, b), G)
+            state["v"] = (v + eps * gv).detach()
+            state["b"] = (b + eps * gb).detach()
+        return step
+
+    def chain_tri_fwd(A, B, **kw):
+        state = {"b": B.clone()}
+
+        def step():
+            with torch.no_grad():
+                state["b"] = state["b"] + eps * sparse_triangular_solve(
+                    A, state["b"], **kw)
+        return step
+
+    torch.cuda.reset_peak_memory_stats()
+    base_mib = torch.cuda.memory_allocated() / 2**20
+    steps.update({
+        "tri_stencil_fwd_ms": time_ms(chain_tri_fwd(T, TB, upper=False),
+                                      reps=10),
+        "tri_stencil_fwd_bwd_ms": time_ms(chain_tri(T, TB, GT, upper=False),
+                                          reps=10),
+        "tri_stencil_p2_fwd_ms": time_ms(chain_tri_fwd(T, TB2, upper=False),
+                                         reps=10),
+        "tri_stencil_p2_fwd_bwd_ms": time_ms(
+            chain_tri(T, TB2, GT2, upper=False), reps=10),
+        "tri_stencil_fwd_bwd_peak_extra_mib":
+            torch.cuda.max_memory_allocated() / 2**20 - base_mib,
+    })
+    torch.cuda.reset_peak_memory_stats()
+    base_mib = torch.cuda.memory_allocated() / 2**20
+    steps.update({
+        "tri_random_fwd_ms": time_ms(chain_tri_fwd(TR, TB2, upper=False),
+                                     reps=5, warmup=1),
+        "tri_random_fwd_bwd_ms": time_ms(
+            chain_tri(TR, TB2, GT2, upper=False), reps=5, warmup=1),
+        "tri_random_fwd_bwd_peak_extra_mib":
+            torch.cuda.max_memory_allocated() / 2**20 - base_mib,
+        "tri_random_routes": routes_tr,
+        "tri_random_first_fwd_bwd_s": t_first,
+    })
+    # host time of the triangular solve's plans at cfd2 scale (numpy)
+    rs, cs = TR.row_sa(), TR.col_sa()
+    host = {}
+    t1 = time.perf_counter()
+    ts.tri_levels(rs.arr, cs.arr, N)
+    host["tri_levels_s"] = time.perf_counter() - t1
+    for name, build in (("block_plan_s", lambda: ts._build_tri_plan.__wrapped__(
+                            rs, cs, N, 512, True)),
+                        ("wave_plan_s", lambda: ts._build_wave_plan.__wrapped__(
+                            rs, cs, N, 128, True)),
+                        ("block_plan_transpose_s",
+                         lambda: ts._build_tri_plan.__wrapped__(
+                             cs, rs, N, 512, False)),
+                        ("wave_plan_transpose_s",
+                         lambda: ts._build_wave_plan.__wrapped__(
+                             cs, rs, N, 128, False))):
+        t1 = time.perf_counter()
+        build()
+        host[name] = time.perf_counter() - t1
+    print(json.dumps({"main_path": steps, "tri_random_host": host,
+                      "card": card}))
+    profile_step("tri_stencil_fwd_bwd_step", chain_tri(T, TB, GT,
+                                                       upper=False), steps=3)
+    profile_step("tri_random_fwd_bwd_step", chain_tri(TR, TB2, GT2,
+                                                      upper=False), steps=3)
     profile_step("stencil_fwd_bwd_step", chain_step(A, B, G))
     profile_step("hybrid85_fwd_bwd_step", chain_step(H, B, G))
     profile_step("random_fwd_bwd_step", chain_step(R, B, G))
@@ -478,13 +714,32 @@ def main() -> int:
          lambda: torch.sparse.mm(csr_r, B1),
          bound(nnz_r * es + idx_bytes + (ucols + n) * es, 2 * nnz_r)),
     ]
+    Kt = tplan.K
+    tcells = valid_cells(tplan.offsets.tolist(), n, n)
+    tcsr = torch.sparse_csr_tensor(
+        torch.from_numpy(T.indptr_np().astype("int64")).to(dev),
+        T.cols_t(), T.values, (n, n))
+    spec.append(
+        ("tri_dia", "torchsparsegradutils_tpu_torch/csrc/tri_dia.cu",
+         "torchsparsegradutils_tpu/kernels/dia_tri.py:150 (K9 "
+         "tri_dia_core)", launches_t,
+         lambda: tri_dia_core(tplan.offsets, tgrid, TB, unit=False),
+         lambda: tri_dia_core_plain(tplan.offsets, tgrid, TB, unit=False),
+         lambda: torch.triangular_solve(TB, tcsr, upper=False),
+         bound((n * Kt + 2 * n * P) * es, 2 * tcells * P)))
     for name, source, replaces, lc, kern, plain, lib, (b_ms, b_by) in spec:
-        rows.append({
+        reps = 5 if name == "tri_dia" else 20
+        row = {
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": lc[name],
-            "max_abs_err": err[name], "ms": time_ms(kern),
-            "plain_ms": time_ms(plain), "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": time_ms(lib)})
+            "max_abs_err": err[name], "ms": time_ms(kern, reps=reps),
+            "plain_ms": time_ms(plain, reps=reps), "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": None}
+        try:
+            row["library_ms"] = time_ms(lib, reps=reps)
+        except (RuntimeError, NotImplementedError) as exc:
+            row["library_error"] = str(exc).splitlines()[0][:200]
+        rows.append(row)
     print(f"card: {card}")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

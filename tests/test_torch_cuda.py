@@ -13,7 +13,8 @@ import numpy as np
 import pytest
 import torch
 
-from torchsparsegradutils_tpu_torch import sddmm, sparse_mm
+from torchsparsegradutils_tpu_torch import (sddmm, sparse_mm,
+                                            sparse_triangular_solve)
 from torchsparsegradutils_tpu_torch.kernels import _build
 from torchsparsegradutils_tpu_torch.kernels.chunk_spmm import (
     build_chunk_plan, chunk_sddmm, chunk_sddmm_plain, chunk_spmm,
@@ -22,11 +23,13 @@ from torchsparsegradutils_tpu_torch.kernels.dia import (sddmm_core,
                                                         sddmm_core_plain,
                                                         spmm_core,
                                                         spmm_core_plain)
+from torchsparsegradutils_tpu_torch.kernels.dia_tri import (
+    tri_dia_core, tri_dia_core_plain)
 from torchsparsegradutils_tpu_torch.kernels.window_gather import (
     window_gather, window_gather_plain)
 from torchsparsegradutils_tpu_torch.types import StaticArray
 from torchsparsegradutils_tpu_torch.utils.random_sparse import (
-    hybrid_sparse, rand_sparse, stencil_sparse)
+    hybrid_sparse, rand_sparse, rand_sparse_tri, stencil_sparse)
 
 pytestmark = pytest.mark.cuda
 
@@ -202,6 +205,90 @@ def test_chunk_wrappers_refuse_what_the_kernels_do_not_take(dev):
         chunk_spmm(ip, ip[:2].cpu(), x[0, :2], x)
 
 
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("n,p,offsets,unit", [
+    (300, 1, [-130, -17, -3, 0], False),     # n not a multiple of 256, p = 1
+    (500, 3, [-256, -1, 0, 5], False),       # span at a block boundary
+    (777, 5, [-300, -2, -1, 7], True),       # unit; p not a multiple of 4
+    (2000, 130, [-2500 + 2000 - 1, -51, -50, -1, 0, 1, 51], False),
+    (1000, 2, list(range(-200, 1)), False)])  # 200 offsets: generic loops
+def test_tri_dia_kernel_matches_plain_and_repeats_bitwise(dev, dtype, n, p,
+                                                          offsets, unit):
+    g = torch.Generator().manual_seed(n + p)
+    grid = torch.randn(n, len(offsets), generator=g) * 0.1
+    if 0 in offsets:        # diagonally dominant: the solve stays bounded
+        k0 = offsets.index(0)
+        grid[:, k0] = 1 + grid.abs().sum(1) - grid[:, k0].abs()
+    grid = grid.to(dev, dtype)
+    B = torch.randn(n, p, generator=g).to(dev, dtype)
+    offs = np.array(offsets)
+    before = tri_dia_core.launches
+    got = tri_dia_core(offs, grid, B, unit=unit)
+    again = tri_dia_core(offs, grid, B, unit=unit)
+    torch.cuda.synchronize()
+    assert tri_dia_core.launches == before + 2
+    assert torch.equal(got, again)
+    close(got, tri_dia_core_plain(offs, grid, B, unit=unit), dtype)
+
+
+@pytest.mark.parametrize("upper", [False, True])
+@pytest.mark.parametrize("transpose", [False, True])
+@pytest.mark.parametrize("unit", [False, True])
+def test_tri_solve_on_card_matches_cpu(dev, upper, transpose, unit):
+    offs = [0, 1, 2, 49, 700] if upper else [-700, -49, -2, -1, 0]
+    if unit:
+        offs = [o for o in offs if o]
+    A = stencil_sparse((1500, 1500), offs, well_conditioned=not unit,
+                       device="cpu")
+    if unit:
+        A = A.with_data(A.values * 0.2)
+    g = torch.Generator().manual_seed(4)
+    B, G = torch.randn(1500, 6, generator=g), torch.randn(1500, 6, generator=g)
+
+    def run(device):
+        v = A.values.to(device).requires_grad_(True)
+        b = B.to(device).requires_grad_(True)
+        x = sparse_triangular_solve(A.with_data(v), b, upper=upper,
+                                    unitriangular=unit, transpose=transpose)
+        gv, gb = torch.autograd.grad(x, (v, b), G.to(device),
+                                     create_graph=True)
+        hv, = torch.autograd.grad((gv ** 2).sum() + (gb ** 2).sum(), v)
+        return x, gv, gb, hv
+
+    before = tri_dia_core.launches
+    got = run(dev)
+    torch.cuda.synchronize()
+    assert tri_dia_core.launches - before >= 2       # forward and gradB
+    for x, ref in zip(got, run("cpu")):
+        close(x.detach(), ref.detach(), torch.float32)
+
+
+def test_tri_solve_random_factor_on_card_matches_cpu(dev):
+    A = rand_sparse_tri((3000, 3000), 15_000, layout="csr", device="cpu")
+    g = torch.Generator().manual_seed(5)
+    B, G = torch.randn(3000, 2, generator=g), torch.randn(3000, 2, generator=g)
+    for algorithm in ("block", "wave"):
+        def run(device):
+            v = A.values.to(device).requires_grad_(True)
+            b = B.to(device).requires_grad_(True)
+            x = sparse_triangular_solve(A.with_data(v), b, upper=False,
+                                        algorithm=algorithm)
+            return (x, *torch.autograd.grad(x, (v, b), G.to(device)))
+        for x, ref in zip(run(dev), run("cpu")):
+            close(x, ref, torch.float32)
+
+
+def test_tri_dia_wrapper_refuses_what_the_kernel_does_not_take(dev):
+    offs = np.array([-1, 0])
+    x = torch.ones(8, 2, device=dev)
+    with pytest.raises(ValueError, match="contiguous"):
+        tri_dia_core(offs, x.t().contiguous().t(), x.t(), unit=False)
+    with pytest.raises(ValueError, match="grid \\(n, K\\)"):
+        tri_dia_core(offs, x[:4], x, unit=False)
+    with pytest.raises(ValueError, match="CUDA device"):
+        tri_dia_core(offs, x, x.cpu(), unit=False)
+
+
 def test_wrappers_raise_on_cuda_when_the_build_is_missing(dev, monkeypatch,
                                                           tmp_path):
     monkeypatch.setattr(_build, "BUILD_ROOT", tmp_path / "none")
@@ -213,7 +300,8 @@ def test_wrappers_raise_on_cuda_when_the_build_is_missing(dev, monkeypatch,
         x = torch.ones(4, 1, device=dev)
         for call in (lambda: spmm_core(offs, x, x),
                      lambda: sddmm_core(offs, x, x),
-                     lambda: window_gather(x[:, 0], offs)):
+                     lambda: window_gather(x[:, 0], offs),
+                     lambda: tri_dia_core(np.array([0]), x, x, unit=False)):
             with pytest.raises(RuntimeError, match="nvcc"):
                 call()
     finally:

@@ -35,7 +35,7 @@ BUILD_ROOT = _PKG.parent / "build" / "tsgu_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 KERNELS = ("dia_spmm", "dia_sddmm", "gather", "chunk_spmm", "chunk_sddmm",
-           "chunk_spmv")
+           "chunk_spmv", "tri_dia")
 
 
 def _nvcc() -> str:

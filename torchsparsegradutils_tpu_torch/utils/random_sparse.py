@@ -1,6 +1,7 @@
 """Random sparse matrices: uniform, stencil and hybrid patterns.
 
-Port of ``rand_sparse``, ``stencil_sparse`` and ``hybrid_sparse`` from
+Port of ``rand_sparse``, ``rand_sparse_tri``, ``stencil_sparse`` and
+``hybrid_sparse`` from
 ``torchsparsegradutils_tpu/utils/random_sparse.py``.  Patterns are built
 on the host with numpy from a seeded ``numpy.random.Generator``
 (vectorised, so a cfd2-scale pattern of 123,440 rows and 3M entries
@@ -28,7 +29,8 @@ import torch
 
 from ..types import SparseCOO, SparseCSR
 
-__all__ = ["rand_sparse", "stencil_sparse", "hybrid_sparse"]
+__all__ = ["rand_sparse", "rand_sparse_tri", "stencil_sparse",
+           "hybrid_sparse"]
 
 
 def _stencil_pattern(n: int, m: int, offsets, nnz):
@@ -107,19 +109,36 @@ def stencil_sparse(shape, offsets, *, nnz: int = None, layout: str = "csr",
                       index_dtype)
 
 
+def _region_capacity(n: int, m: int, region: str) -> int:
+    """Cells of the (n, m) matrix in ``region``: "all", "strict_tril"
+    (i > j) or "strict_triu" (i < j)."""
+    if region == "all":
+        return n * m
+    k = min(n, m)
+    extra = max(0, n - m) * m if region == "strict_tril" \
+        else max(0, m - n) * n
+    return k * (k - 1) // 2 + extra
+
+
 def _sample_unique_pairs(rng: np.random.Generator, n: int, m: int,
-                         nnz: int):
-    """``nnz`` distinct (i, j) pairs, uniform over the (n, m) matrix."""
-    if nnz > n * m:
-        raise ValueError(f"nnz={nnz} exceeds capacity {n * m} for shape "
-                         f"({n}, {m})")
+                         nnz: int, region: str = "all"):
+    """``nnz`` distinct (i, j) pairs, uniform over the (n, m) matrix or
+    over its strict lower or upper triangle (``region``)."""
+    cap = _region_capacity(n, m, region)
+    if nnz > cap:
+        where = "" if region == "all" else f" of region {region!r}"
+        raise ValueError(f"nnz={nnz} exceeds capacity {cap}{where} for "
+                         f"shape ({n}, {m})")
     keys = np.empty(0, np.int64)
     want = nnz
     while len(keys) < nnz:
         batch = max(1024, int(1.5 * want) + 16)
-        cand = (rng.integers(0, n, batch, dtype=np.int64) * m
-                + rng.integers(0, m, batch, dtype=np.int64))
-        keys = np.unique(np.concatenate([keys, cand]))
+        i = rng.integers(0, n, batch, dtype=np.int64)
+        j = rng.integers(0, m, batch, dtype=np.int64)
+        if region != "all":
+            ok = i > j if region == "strict_tril" else i < j
+            i, j = i[ok], j[ok]
+        keys = np.unique(np.concatenate([keys, i * m + j]))
         want = nnz - len(keys)
     keys = rng.permutation(keys)[:nnz]
     return keys // m, keys % m
@@ -189,6 +208,65 @@ def rand_sparse(shape, nnz: int, *, layout: str = "coo", dtype=torch.float32,
             v = _boost_diagonal(rows, cols, v, n)
             v[torch.from_numpy(np.nonzero((rows == 0) & (cols == 0))[0][1:])
               ] = 0
+        vals.append(v)
+    rows, cols = (np.stack(x).reshape(*batch, nnz) for x in zip(*pats)) \
+        if n_pats > 1 else pats[0]
+    values = torch.stack(vals).reshape(*batch, nnz).to(device)
+    return _container(layout, rows, cols, values, (*batch, n, m),
+                      index_dtype)
+
+
+def _tri_pattern(rng, n: int, m: int, nnz: int, upper: bool, strict: bool):
+    """Row-major ``(rows, cols)`` of a random triangle: ``nnz`` distinct
+    strictly-triangular entries, or the full diagonal plus ``nnz - min(n,
+    m)`` of them."""
+    region = "strict_triu" if upper else "strict_tril"
+    d = 0 if strict else min(n, m)
+    if nnz < d:
+        raise ValueError(
+            f"non-strict triangular requires nnz >= diagonal length {d}")
+    oi, oj = _sample_unique_pairs(rng, n, m, nnz - d, region)
+    rows = np.concatenate([np.arange(d), oi]).astype(np.int64)
+    cols = np.concatenate([np.arange(d), oj]).astype(np.int64)
+    order = np.lexsort((cols, rows))
+    return rows[order], cols[order]
+
+
+def rand_sparse_tri(shape, nnz: int, *, upper: bool = False,
+                    strict: bool = False, layout: str = "coo",
+                    dtype=torch.float32, index_dtype=np.int32,
+                    well_conditioned: bool = True,
+                    shared_pattern: bool = False, generator=None,
+                    seed: int = 0, device="cuda"):
+    """Random triangular matrix with exactly ``nnz`` entries, row-major.
+
+    Args:
+      shape: ``(n, m)`` or batched ``(*batch, n, m)``: one pattern per
+        element unless ``shared_pattern``.
+      upper, strict: which triangle; a non-strict triangle always holds
+        the full diagonal, and ``nnz - min(n, m)`` entries off it.
+      well_conditioned: (non-strict) each diagonal entry is 1 + the sum of
+        its row's off-diagonal magnitudes, so solves stay stable (the
+        default, as solvers are the main consumer); else the diagonal is
+        drawn like the rest.
+      generator: CPU ``torch.Generator`` for the values (seed 0 if None).
+      seed: seed of the numpy generator that draws the patterns.
+      device: where the values go.
+    """
+    *batch, n, m = (int(s) for s in shape)
+    rng = np.random.default_rng(seed)
+    gen = generator if generator is not None else \
+        torch.Generator().manual_seed(0)
+    bsz = int(np.prod(batch))                       # 1 when unbatched
+    n_pats = 1 if shared_pattern else bsz
+    pats = [_tri_pattern(rng, n, m, nnz, upper, strict)
+            for _ in range(n_pats)]
+    vals = []
+    for i in range(bsz):
+        rows, cols = pats[i % n_pats]
+        v = _values(gen, nnz, dtype, "cpu")
+        if well_conditioned and not strict:
+            v = _boost_diagonal(rows, cols, v, n)
         vals.append(v)
     rows, cols = (np.stack(x).reshape(*batch, nnz) for x in zip(*pats)) \
         if n_pats > 1 else pats[0]
