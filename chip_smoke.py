@@ -38,8 +38,19 @@ script exits non-zero without its last line:
    a dense solve, and the launch counters (the triangular kernel also
    against its plain version at the cfd2 shapes and small awkward ones in
    phase 2);
+   ``sparse_logsumexp`` (dim 1, dim 0) and ``sparse_bidir_logsumexp``
+   forward and backward on three patterns: *lse-stencil* (the DIA route),
+   *lse-random* (the row-ELL grid both ways) and *lse-skewed* (1,235 hub
+   rows of 1,250 entries and uniform rest, 3,087,898 entries: the chunk
+   LSE kernels on rows, the ELL grid on columns), against the segment
+   path on the card, with per-route launch checks (the chunk LSE kernels
+   launch on lse-skewed only); and *random-fused*, ``sparse_mm`` on the
+   random pattern at p = 128 with ``SPMM_BWD = "fused"`` (and
+   ``grad_precision="fast"``), against the split backward (the LSE and
+   fused kernels also against their plain versions at the cfd2 shapes
+   and small awkward ones in phase 2);
 4. times the chained forward and forward+backward steps, profiles
-   six of them, times the triangular solve's host plans, and times each
+   seven of them, times the triangular solve's host plans, and times each
    kernel, its plain version and one PyTorch library call that computes
    the same function, with CUDA events, and prints them as a
    ``{"kernels": [...]}`` line;
@@ -71,6 +82,10 @@ DIA_KERNELS = ("dia_spmm", "dia_sddmm", "gather")
 CHUNK_KERNELS = ("chunk_spmm", "chunk_sddmm", "gather")
 TRI_KERNELS = ("tri_dia", "dia_sddmm", "gather")
 TRI_RANDOM_KERNELS = ("chunk_sddmm", "gather")
+LSE_CHUNK = ("lse_rows", "lse_rows_bwd")
+FUSED = ("chunk_bwd_pass1", "chunk_bwd_pass2")
+GRAD_TOL = (1e-4, 1e-6)  # (rtol, atol): LSE gradients, the JAX tests' own
+FAST_REL = 1e-2  # |gradB - split| / |split| with V stored in bfloat16
 ROUTES = []             # triangular-solve routes taken, in order
 
 
@@ -159,8 +174,11 @@ def profile_step(label, step, steps=5, top=8):
 
 
 def counters():
+    from torchsparsegradutils_tpu_torch.kernels.chunk_lse import (
+        lse_rows, lse_rows_bwd)
     from torchsparsegradutils_tpu_torch.kernels.chunk_spmm import (
-        chunk_sddmm, chunk_spmm, chunk_spmv)
+        chunk_bwd_pass1, chunk_bwd_pass2, chunk_sddmm, chunk_spmm,
+        chunk_spmv)
     from torchsparsegradutils_tpu_torch.kernels.dia import (sddmm_core,
                                                             spmm_core)
     from torchsparsegradutils_tpu_torch.kernels.dia_tri import tri_dia_core
@@ -169,7 +187,9 @@ def counters():
     return {"dia_spmm": spmm_core, "dia_sddmm": sddmm_core,
             "gather": window_gather, "chunk_spmm": chunk_spmm,
             "chunk_sddmm": chunk_sddmm, "chunk_spmv": chunk_spmv,
-            "tri_dia": tri_dia_core}
+            "tri_dia": tri_dia_core, "lse_rows": lse_rows,
+            "lse_rows_bwd": lse_rows_bwd, "chunk_bwd_pass1": chunk_bwd_pass1,
+            "chunk_bwd_pass2": chunk_bwd_pass2}
 
 
 def track_routes():
@@ -192,9 +212,9 @@ def zero_counters():
         fn.launches = 0
 
 
-def read_counters(label, expect):
+def read_counters(label, expect, forbid=()):
     """Launch counts since :func:`zero_counters`; raises if a kernel of
-    ``expect`` did not launch."""
+    ``expect`` did not launch or one of ``forbid`` did."""
     import torch
     torch.cuda.synchronize()
     launches = {k: fn.launches for k, fn in counters().items()}
@@ -202,15 +222,19 @@ def read_counters(label, expect):
     missing = [k for k in expect if launches[k] == 0]
     if missing:
         raise AssertionError(f"{label}: kernels {missing} never launched")
+    wrong = [k for k in forbid if launches[k] != 0]
+    if wrong:
+        raise AssertionError(f"{label}: kernels {wrong} launched off their "
+                             "route")
     return launches
 
 
-def fwd_bwd(A, B, G, backend):
+def fwd_bwd(A, B, G, backend, **kw):
     import torch
     from torchsparsegradutils_tpu_torch import sparse_mm
     v = A.values.detach().clone().requires_grad_(True)
     b = B.detach().clone().requires_grad_(True)
-    out = sparse_mm(A.with_data(v), b, backend=backend)
+    out = sparse_mm(A.with_data(v), b, backend=backend, **kw)
     gv, gb = torch.autograd.grad(out, (v, b), G)
     return out, gv, gb
 
@@ -352,17 +376,195 @@ def check_tri_small(dt, name, gen, dev):
               tri_dia_core_plain(np.array(offs), g, b, unit=unit), name)
 
 
+def distinct_keys(rng, space, k):
+    """``k`` distinct integers of ``[0, space)``, sorted."""
+    import numpy as np
+    keys = np.unique(rng.integers(0, space, k + k // 8 + 16))
+    while len(keys) < k:
+        keys = np.unique(np.concatenate([keys, rng.integers(0, space, k)]))
+    return np.sort(rng.choice(keys, k, replace=False))
+
+
+def skewed_pattern(n, hub_every=100, hub_len=1250, rest=1_544_148, seed=7):
+    """Row-major (rows, cols), n x n: every ``hub_every``-th row a hub of
+    ``hub_len`` distinct uniform columns, ``rest`` distinct uniform pairs
+    over the other rows.  At n = 123,440: 1,235 hubs holding 1,543,750
+    entries and 3,087,898 in all; the longest row is 50x the mean, so
+    the ELL grid refuses the rows and takes the columns."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    hubs = np.arange(0, n, hub_every)
+    hub_cols = np.concatenate([np.sort(rng.choice(n, hub_len, replace=False))
+                               for _ in hubs])
+    others = np.setdiff1d(np.arange(n), hubs)
+    keys = distinct_keys(rng, len(others) * n, rest)
+    rows = np.concatenate([np.repeat(hubs, hub_len), others[keys // n]])
+    cols = np.concatenate([hub_cols, keys % n])
+    order = np.lexsort((cols, rows))
+    return rows[order], cols[order]
+
+
+def lse_awkward_plan():
+    """(3000, 200,000): empty rows, a single entry, rows of 1,024 and
+    1,025 entries (either side of the kernels' whole-block threshold),
+    one of 100,000; and its values with +inf, -inf and an all -inf
+    row."""
+    import numpy as np
+    from torchsparsegradutils_tpu_torch.kernels.chunk_spmm import (
+        build_chunk_plan)
+    from torchsparsegradutils_tpu_torch.types import StaticArray
+    n, m = 3000, 200_000
+    rng = np.random.default_rng(11)
+    keys = np.sort(rng.choice(n * 50, 20_000, replace=False))
+    rows, cols = keys // 50, keys % 50
+    keep = (rows % 9 != 0) & ~np.isin(rows, [5, 6, 7, 8])
+    extra = [(5, 100_000), (6, 1024), (7, 1025), (8, 1)]
+    rows = np.concatenate([rows[keep]] + [np.full(k, r) for r, k in extra])
+    cols = np.concatenate([cols[keep]] + [np.sort(rng.choice(m, k, False))
+                                          for _, k in extra])
+    order = np.lexsort((cols, rows))
+    rows, cols = rows[order], cols[order]
+    vals = rng.standard_normal(len(rows)) * 3
+    vals[rows == 10] = -np.inf
+    vals[np.flatnonzero(rows == 11)[:1]] = np.inf
+    vals[np.flatnonzero(rows == 5)[::997]] = -np.inf
+    return build_chunk_plan(StaticArray(rows), StaticArray(cols), n, m), vals
+
+
+def close_inf(name, got, ref, dtype_name, tol=None):
+    """:func:`close` on the finite entries of ``ref``; the infinities
+    must be equal."""
+    import torch
+    got, ref = got.double(), ref.double()
+    fin = torch.isfinite(ref)
+    if got.shape != ref.shape or not torch.equal(got[~fin], ref[~fin]):
+        raise AssertionError(f"{name} [{dtype_name}]: shapes or "
+                             "infinities differ")
+    return close(name, got[fin], ref[fin], dtype_name, tol)
+
+
+def check_lse_kernels(label, plan, vals, width, dt_name, gen):
+    """K10 (both include_zeros) and K11 against their plain versions,
+    each launched twice and bitwise equal; returns the largest errors.
+    The plain versions run in float64 on the same values: a float32
+    index_add over a 100,000-entry row is itself off by about 1e-5
+    relative, in an order that changes from run to run."""
+    import torch
+    from torchsparsegradutils_tpu_torch.kernels import _build
+    from torchsparsegradutils_tpu_torch.kernels.chunk_lse import (
+        lse_rows, lse_rows_bwd, lse_rows_bwd_plain, lse_rows_plain)
+    ip = plan.maps(vals.device)["indptr"]
+    g = torch.randn(plan.n, generator=gen).to(
+        vals.device, _build.acc_dtype(vals.dtype))
+    err = {}
+    for iz in (False, True):
+        out, again = (lse_rows(ip, vals, width, iz) for _ in range(2))
+        if not torch.equal(out, again):
+            raise AssertionError(f"{label} lse_rows [{dt_name}]: two "
+                                 "launches differ")
+        ref = lse_rows_plain(ip, vals.double(), width, iz)
+        e = close_inf(f"{label} lse_rows include_zeros={iz} (repeats "
+                      "bitwise)", out, ref, dt_name)
+        err["lse_rows"] = max(err.get("lse_rows", 0.0), e)
+        d, d2 = (lse_rows_bwd(ip, vals, out, g) for _ in range(2))
+        if not torch.equal(d, d2):
+            raise AssertionError(f"{label} lse_rows_bwd [{dt_name}]: two "
+                                 "launches differ")
+        e = close(f"{label} lse_rows_bwd include_zeros={iz} (repeats "
+                  "bitwise)", d, lse_rows_bwd_plain(
+                      ip, vals.double(), out.double(), g.double()), dt_name)
+        err["lse_rows_bwd"] = max(err.get("lse_rows_bwd", 0.0), e)
+    return err
+
+
+def check_fused_kernels(label, plan, vals, B, G, dt_name):
+    """K12a and K12b against their plain versions, V in the working dtype
+    and in bfloat16, each launched twice and bitwise equal; gradA equal
+    to K7's; returns the largest errors."""
+    import torch
+    from torchsparsegradutils_tpu_torch.kernels.chunk_spmm import (
+        chunk_bwd_pass1, chunk_bwd_pass1_plain, chunk_bwd_pass2,
+        chunk_bwd_pass2_plain, chunk_sddmm)
+    d, dt = plan.maps(B.device), plan.T.maps(B.device)
+    err = {}
+    for v_dtype in dict.fromkeys((B.dtype, torch.bfloat16)):
+        vn = str(v_dtype).removeprefix("torch.")
+        args = (d["indptr"], d["cols"], vals, B, G, v_dtype)
+        (dd, V), (dd2, V2) = chunk_bwd_pass1(*args), chunk_bwd_pass1(*args)
+        if not (torch.equal(dd, dd2) and torch.equal(V, V2)):
+            raise AssertionError(f"{label} chunk_bwd_pass1 [{dt_name}]: two "
+                                 "launches differ")
+        pdd, pV = chunk_bwd_pass1_plain(*args)
+        if not torch.equal(dd, chunk_sddmm(d["indptr"], d["cols"], G, B)):
+            raise AssertionError(f"{label} chunk_bwd_pass1 [{dt_name}]: dd "
+                                 "is not K7's")
+        e = max(close(f"{label} chunk_bwd_pass1 dd, V {vn} (repeats "
+                      "bitwise)", dd, pdd, dt_name),
+                close(f"{label} chunk_bwd_pass1 V {vn}", V, pV, dt_name))
+        del pV
+        err["chunk_bwd_pass1"] = max(err.get("chunk_bwd_pass1", 0.0), e)
+        dB, dB2 = (chunk_bwd_pass2(dt["indptr"], dt["perm"], V, B.dtype)
+                   for _ in range(2))
+        if not torch.equal(dB, dB2):
+            raise AssertionError(f"{label} chunk_bwd_pass2 [{dt_name}]: two "
+                                 "launches differ")
+        e = close(f"{label} chunk_bwd_pass2 V {vn} (repeats bitwise)", dB,
+                  chunk_bwd_pass2_plain(dt["indptr"], dt["perm"], V,
+                                        B.dtype), dt_name)
+        err["chunk_bwd_pass2"] = max(err.get("chunk_bwd_pass2", 0.0), e)
+        del V, V2
+    return err
+
+
+def lse_fwd_bwd(A, backend):
+    """dim 1, dim 0 and the bidir LSE of A and the gradient of their
+    weighted sum (fixed weights) w.r.t. A.values."""
+    import torch
+    from torchsparsegradutils_tpu_torch import (sparse_bidir_logsumexp,
+                                                sparse_logsumexp)
+    v = A.values.detach().clone().requires_grad_(True)
+    M = A.with_data(v)
+    outs = [sparse_logsumexp(M, 1, backend=backend),
+            sparse_logsumexp(M, 0, include_zeros=False, backend=backend),
+            *sparse_bidir_logsumexp(M, backend=backend)]
+    cts = [torch.linspace(-1, 1, o.numel(), device=v.device) for o in outs]
+    (gv,) = torch.autograd.grad(outs, v, cts)
+    return outs, gv
+
+
+def drive_lse(label, A, expect, forbid):
+    """The LSE ops forward and backward through the public entries on
+    ``auto``, the counters set to 0 just before and read just after; then
+    the segment path on the card as reference."""
+    zero_counters()
+    outs, gv = lse_fwd_bwd(A, "auto")
+    launches = read_counters(label, expect, forbid)
+    ref_outs, ref_gv = lse_fwd_bwd(A, "xla")
+    for name, got, ref in zip(("dim 1", "dim 0 (support)", "bidir col",
+                               "bidir row"), outs, ref_outs):
+        close_inf(f"{label} {name} vs segment path", got, ref, "float32",
+                  (1e-5, 1e-6))
+    close(f"{label} gradA vs segment path", gv, ref_gv, "float32", GRAD_TOL)
+    return launches
+
+
 def main() -> int:
     import numpy as np
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
-    from torchsparsegradutils_tpu_torch import sparse_mm
-    from torchsparsegradutils_tpu_torch.kernels import _build
+    from torchsparsegradutils_tpu_torch import (SparseCSR,
+                                                sparse_bidir_logsumexp,
+                                                sparse_logsumexp, sparse_mm)
+    from torchsparsegradutils_tpu_torch.kernels import _build, dia
+    from torchsparsegradutils_tpu_torch.kernels.chunk_lse import (
+        lse_rows, lse_rows_bwd, lse_rows_bwd_plain, lse_rows_plain)
     from torchsparsegradutils_tpu_torch.kernels.chunk_spmm import (
-        build_chunk_plan, chunk_sddmm, chunk_sddmm_plain, chunk_spmm,
-        chunk_spmm_plain, chunk_spmv, chunk_spmv_plain)
+        build_chunk_plan, chunk_bwd_pass1, chunk_bwd_pass1_plain,
+        chunk_bwd_pass2, chunk_bwd_pass2_plain, chunk_sddmm,
+        chunk_sddmm_plain, chunk_spmm, chunk_spmm_plain, chunk_spmv,
+        chunk_spmv_plain)
     from torchsparsegradutils_tpu_torch.kernels.dia import (
         build_dia_plan, sddmm_core, sddmm_core_plain, spmm_core,
         spmm_core_plain, values_to_grid)
@@ -413,6 +615,17 @@ def main() -> int:
     tplan = build_dia_plan(T.row_sa(), T.col_sa(), N, N)
     tgrid = values_to_grid(tplan, T.values)
     TB = torch.randn(N, P, generator=gen).to(dev)
+    t1 = time.perf_counter()
+    s_rows, s_cols = skewed_pattern(N)
+    s_indptr = np.concatenate([[0], np.cumsum(np.bincount(s_rows,
+                                                          minlength=N))])
+    S = SparseCSR(s_indptr, s_cols, torch.randn(len(s_cols), generator=gen),
+                  (N, N), device=dev)
+    splan = build_chunk_plan(S.row_sa(), S.col_sa(), N, N)
+    print(f"  lse-skewed: {S.nnz} entries, longest row "
+          f"{int(np.diff(s_indptr).max())}, built in "
+          f"{time.perf_counter() - t1:.1f} s")
+    lplan, lvals = lse_awkward_plan()
     err = {}
     for dt in (torch.float32, torch.bfloat16, torch.float64):
         name = str(dt).removeprefix("torch.")
@@ -458,6 +671,23 @@ def main() -> int:
             if dt == torch.float32:
                 err["tri_dia"] = max(err.get("tri_dia", 0.0), e)
         check_tri_small(dt, name, gen, dev)
+        # the chunk LSE kernels on the skewed and random rows and a small
+        # awkward pattern; the fused backward at p = 128 and p = 3
+        el = {}
+        for label, pl, vv in (("lse-skewed cfd2", splan, S.values),
+                              ("lse-random cfd2", cplan, R.values)):
+            for k, e in check_lse_kernels(label, pl, vv.to(dt), N, name,
+                                          gen).items():
+                el[k] = max(el.get(k, 0.0), e)
+        check_lse_kernels("lse small awkward", lplan,
+                          torch.from_numpy(lvals).to(dev, dt), lplan.m,
+                          name, gen)
+        ef = check_fused_kernels("random cfd2 p=128", cplan, R.values.to(dt),
+                                 b, gg, name)
+        check_fused_kernels("small p=3", small, sv, sB, sX, name)
+        if dt == torch.float32:
+            err.update(el)
+            err.update(ef)
 
     # ---- phase 3: the main path --------------------------------------------
     print(f"phase 3: sparse_mm fwd+bwd through the public entry point "
@@ -531,6 +761,50 @@ def main() -> int:
     other = "wave" if routes_tr[0] == "block" else "block"
     drive_tri("tri-random p=2 (again)", TR, TB2, GT2, TRI_RANDOM_KERNELS,
               ref_algorithm=other, upper=False)
+
+    print(f"phase 3c: sparse_logsumexp / sparse_bidir_logsumexp fwd+bwd "
+          f"and the fused chunk backward ({time.perf_counter() - t0:.1f} "
+          "s in)")
+    sd = small_r.todense().double()
+    for iz in (True, False):
+        dd_ = sd if iz else sd.masked_fill(small_r.todense() == 0,
+                                           float("-inf"))
+        for dim in (0, 1):
+            close_inf(f"small random lse dim {dim} include_zeros={iz} vs "
+                      "dense f64",
+                      sparse_logsumexp(small_r, dim, include_zeros=iz),
+                      torch.logsumexp(dd_, dim), "float32", (1e-5, 1e-6))
+    drive_lse("lse-stencil", A, ("gather",), LSE_CHUNK)
+    drive_lse("lse-random", R, ("gather",), LSE_CHUNK)
+    launches_lse = drive_lse("lse-skewed", S, LSE_CHUNK + ("gather",), ())
+    split = fwd_bwd(R, B, G, "auto")
+    dia.SPMM_BWD = "fused"
+    try:
+        for gp in ("exact", "fast"):
+            zero_counters()
+            got = fwd_bwd(R, B, G, "auto", grad_precision=gp)
+            lf = read_counters(f"random-fused p=128 {gp}", FUSED,
+                               ("chunk_sddmm",))
+            if lf["chunk_spmm"] != 1:
+                raise AssertionError("random-fused: chunk_spmm launched "
+                                     f"{lf['chunk_spmm']} times, not once "
+                                     "(the forward)")
+            if gp == "exact":
+                launches_f = lf
+            for name_, g_, r_ in zip(("out", "gradA", "gradB"), got, split):
+                if (gp, name_) != ("fast", "gradB"):
+                    close(f"random-fused {gp} {name_} vs split", g_, r_,
+                          "float32")
+                    continue
+                rel = ((g_ - r_).norm() / r_.norm()).item()
+                print(f"  random-fused fast gradB vs split: relative error "
+                      f"{rel:.3e} (limit {FAST_REL})")
+                if not rel <= FAST_REL:
+                    raise AssertionError("random-fused fast gradB: relative "
+                                         f"error {rel:.3e} > {FAST_REL}")
+    finally:
+        dia.SPMM_BWD = "split"
+    del split, got
 
     # ---- phase 4: timing ---------------------------------------------------
     print(f"phase 4: timing ({time.perf_counter() - t0:.1f} s in)")
@@ -636,8 +910,42 @@ def main() -> int:
         t1 = time.perf_counter()
         build()
         host[name] = time.perf_counter() - t1
+    # the LSE steps, and sparse_mm's fwd+bwd under the two backwards
+    def lse_step(A, what):
+        v = A.values.detach().clone().requires_grad_(what == "bidir_fwd_bwd")
+        M = A.with_data(v)
+
+        def step():
+            if what == "bidir_fwd_bwd":
+                outs = sparse_bidir_logsumexp(M)
+                torch.autograd.grad(outs, v, outs)
+                return
+            with torch.no_grad():
+                if what == "bidir_fwd":
+                    sparse_bidir_logsumexp(M)
+                else:
+                    sparse_logsumexp(M, 1 if what == "dim1_fwd" else 0)
+        return step
+
+    for label, M in (("lse_stencil", A), ("lse_random", R),
+                     ("lse_skewed", S)):
+        for what in ("dim1_fwd", "dim0_fwd", "bidir_fwd", "bidir_fwd_bwd"):
+            steps[f"{label}_{what}_ms"] = time_ms(lse_step(M, what), reps=20)
+    for mode in ("split", "fused"):
+        dia.SPMM_BWD = mode
+        try:
+            torch.cuda.reset_peak_memory_stats()
+            base_mib = torch.cuda.memory_allocated() / 2**20
+            steps[f"random_{mode}_fwd_bwd_ms"] = time_ms(chain_step(R, B, G),
+                                                         reps=20)
+            steps[f"random_{mode}_fwd_bwd_peak_extra_mib"] = \
+                torch.cuda.max_memory_allocated() / 2**20 - base_mib
+        finally:
+            dia.SPMM_BWD = "split"
     print(json.dumps({"main_path": steps, "tri_random_host": host,
                       "card": card}))
+    profile_step("lse_skewed_bidir_fwd_bwd_step",
+                 lse_step(S, "bidir_fwd_bwd"))
     profile_step("tri_stencil_fwd_bwd_step", chain_tri(T, TB, GT,
                                                        upper=False), steps=3)
     profile_step("tri_random_fwd_bwd_step", chain_tri(TR, TB2, GT2,
@@ -727,6 +1035,53 @@ def main() -> int:
          lambda: tri_dia_core_plain(tplan.offsets, tgrid, TB, unit=False),
          lambda: torch.triangular_solve(TB, tcsr, upper=False),
          bound((n * Kt + 2 * n * P) * es, 2 * tcells * P)))
+    # K10 and K11 on lse-skewed (include_zeros, as sparse_logsumexp's
+    # default), K12a and K12b on the random pattern at p = 128
+    sm = splan.maps(dev)
+    nnz_s = S.nnz
+    out_s = lse_rows(sm["indptr"], S.values, N, True)
+    g_s = torch.randn(N, generator=gen).to(dev)
+    coo_s = torch.sparse_coo_tensor(torch.stack([S.rows_t(), S.cols_t()]),
+                                    S.values, (N, N)).coalesce()
+    ctm = cplan.T.maps(dev)
+    V = chunk_bwd_pass1(cm["indptr"], cm["cols"], R.values, B, G,
+                        torch.float32)[1]
+    csr_rt = torch.sparse_csr_tensor(ctm["indptr"], ctm["cols"],
+                                     R.values[ctm["perm"]], (m, n))
+    lse_src = "torchsparsegradutils_tpu_torch/csrc/chunk_lse.cu"
+    fused_src = "torchsparsegradutils_tpu_torch/csrc/chunk_bwd_fused.cu"
+    spec += [
+        ("lse_rows", lse_src, "torchsparsegradutils_tpu/kernels/"
+         "chunk_lse.py:70 (K10 _lse_partials)", launches_lse,
+         lambda: lse_rows(sm["indptr"], S.values, N, True),
+         lambda: lse_rows_plain(sm["indptr"], S.values, N, True),
+         lambda: torch.sparse.log_softmax(coo_s, 1),
+         bound(nnz_s * es + (n + 1) * 8 + n * es, 2 * nnz_s)),
+        ("lse_rows_bwd", lse_src, "torchsparsegradutils_tpu/kernels/"
+         "chunk_lse.py:142 (K11 _lse_bwd_pass)", launches_lse,
+         lambda: lse_rows_bwd(sm["indptr"], S.values, out_s, g_s),
+         lambda: lse_rows_bwd_plain(sm["indptr"], S.values, out_s, g_s),
+         None, bound(2 * nnz_s * es + (n + 1) * 8 + 2 * n * es,
+                     2 * nnz_s)),
+        ("chunk_bwd_pass1", fused_src, "torchsparsegradutils_tpu/kernels/"
+         "chunk_spmm.py:429 (K12a chunk_spmm_bwd_fused pass 1)", launches_f,
+         lambda: chunk_bwd_pass1(cm["indptr"], cm["cols"], R.values, B, G,
+                                 torch.float32),
+         lambda: chunk_bwd_pass1_plain(cm["indptr"], cm["cols"], R.values,
+                                       B, G, torch.float32),
+         lambda: torch.sparse.sampled_addmm(csr_r, G, B.t(), beta=0.0),
+         bound((urows + ucols) * P * es + idx_bytes + 2 * nnz_r * es
+               + nnz_r * P * es, 3 * nnz_r * P)),
+        ("chunk_bwd_pass2", fused_src, "torchsparsegradutils_tpu/kernels/"
+         "chunk_spmm.py:462 (K12b chunk_spmm_bwd_fused pass 2)", launches_f,
+         lambda: chunk_bwd_pass2(ctm["indptr"], ctm["perm"], V,
+                                 torch.float32),
+         lambda: chunk_bwd_pass2_plain(ctm["indptr"], ctm["perm"], V,
+                                       torch.float32),
+         lambda: torch.sparse.mm(csr_rt, G),
+         bound(nnz_r * P * es + nnz_r * 8 + (m + 1) * 8 + m * P * es,
+               nnz_r * P)),
+    ]
     for name, source, replaces, lc, kern, plain, lib, (b_ms, b_by) in spec:
         reps = 5 if name == "tri_dia" else 20
         row = {
@@ -735,10 +1090,18 @@ def main() -> int:
             "max_abs_err": err[name], "ms": time_ms(kern, reps=reps),
             "plain_ms": time_ms(plain, reps=reps), "bound_ms": b_ms,
             "bound_by": b_by, "library_ms": None}
-        try:
-            row["library_ms"] = time_ms(lib, reps=reps)
-        except (RuntimeError, NotImplementedError) as exc:
-            row["library_error"] = str(exc).splitlines()[0][:200]
+        if lib is None:
+            row["library_note"] = ("no single PyTorch call computes "
+                                   "exp(v - out[row]) * g[row] per entry")
+        else:
+            try:
+                row["library_ms"] = time_ms(lib, reps=reps)
+            except (RuntimeError, NotImplementedError) as exc:
+                row["library_error"] = str(exc).splitlines()[0][:200]
+        if name == "lse_rows":
+            row["library_note"] = ("torch.sparse.log_softmax, dim 1: the "
+                                   "same row reduction over the stored "
+                                   "entries, as include_zeros=False")
         rows.append(row)
     print(f"card: {card}")
     print(json.dumps({"kernels": rows}))

@@ -13,12 +13,17 @@ import numpy as np
 import pytest
 import torch
 
-from torchsparsegradutils_tpu_torch import (sddmm, sparse_mm,
+from torchsparsegradutils_tpu_torch import (SparseCOO, sddmm,
+                                            sparse_bidir_logsumexp,
+                                            sparse_logsumexp, sparse_mm,
                                             sparse_triangular_solve)
-from torchsparsegradutils_tpu_torch.kernels import _build
+from torchsparsegradutils_tpu_torch.kernels import _build, dia
+from torchsparsegradutils_tpu_torch.kernels.chunk_lse import (
+    lse_rows, lse_rows_bwd, lse_rows_bwd_plain, lse_rows_plain)
 from torchsparsegradutils_tpu_torch.kernels.chunk_spmm import (
-    build_chunk_plan, chunk_sddmm, chunk_sddmm_plain, chunk_spmm,
-    chunk_spmm_plain, chunk_spmv, chunk_spmv_plain)
+    build_chunk_plan, chunk_bwd_pass1, chunk_bwd_pass1_plain,
+    chunk_bwd_pass2, chunk_bwd_pass2_plain, chunk_sddmm, chunk_sddmm_plain,
+    chunk_spmm, chunk_spmm_plain, chunk_spmv, chunk_spmv_plain)
 from torchsparsegradutils_tpu_torch.kernels.dia import (sddmm_core,
                                                         sddmm_core_plain,
                                                         spmm_core,
@@ -289,6 +294,184 @@ def test_tri_dia_wrapper_refuses_what_the_kernel_does_not_take(dev):
         tri_dia_core(offs, x, x.cpu(), unit=False)
 
 
+def close_inf(got, ref, dtype):
+    """``close`` on the finite entries; the infinities equal."""
+    got, ref = got.double().cpu(), ref.double().cpu()
+    fin = torch.isfinite(ref)
+    assert torch.equal(got[~fin], ref[~fin])
+    close(got[fin], ref[fin], dtype)
+
+
+def _lse_pattern():
+    """(3000, 200_000): empty rows, a single entry, rows of 1,024 and
+    1,025 entries (either side of the kernels' whole-block threshold),
+    one row of 100,000, the rest uniform; values with +inf, -inf and an
+    all -inf row."""
+    n, m = 3000, 200_000
+    rng = np.random.default_rng(11)
+    keys = np.sort(rng.choice(n * 50, 20_000, replace=False))
+    rows, cols = keys // 50, keys % 50
+    keep = (rows % 9 != 0) & ~np.isin(rows, [5, 6, 7, 8])
+    extra = [(5, 100_000), (6, 1024), (7, 1025), (8, 1)]
+    rows = np.concatenate([rows[keep]] + [np.full(k, r) for r, k in extra])
+    cols = np.concatenate([cols[keep]] + [np.sort(rng.choice(m, k, False))
+                                          for _, k in extra])
+    order = np.lexsort((cols, rows))
+    rows, cols = rows[order], cols[order]
+    vals = rng.standard_normal(len(rows)) * 3
+    vals[rows == 10] = -np.inf                      # an all -inf row
+    vals[np.flatnonzero(rows == 11)[:1]] = np.inf
+    vals[np.flatnonzero(rows == 12)[:1]] = -np.inf
+    vals[np.flatnonzero(rows == 5)[::997]] = -np.inf
+    return build_chunk_plan(StaticArray(rows), StaticArray(cols), n, m), vals
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("include_zeros", [False, True])
+def test_lse_kernels_match_plain_and_repeat_bitwise(dev, dtype,
+                                                    include_zeros):
+    plan, vals = _lse_pattern()
+    ip = plan.maps(dev)["indptr"]
+    v = torch.from_numpy(vals).to(dev, dtype)
+    acc = _build.acc_dtype(dtype)
+    g = torch.randn(plan.n, generator=torch.Generator().manual_seed(3)).to(
+        dev, acc)
+    before = lse_rows.launches, lse_rows_bwd.launches
+    out, again = (lse_rows(ip, v, plan.m, include_zeros) for _ in range(2))
+    # the plain versions in float64 on the same values: a float32
+    # index_add over the 100,000-entry row drifts by about 1e-5 itself
+    ref = lse_rows_plain(ip, v.double(), plan.m, include_zeros)
+    d, d_again = (lse_rows_bwd(ip, v, out, g) for _ in range(2))
+    torch.cuda.synchronize()
+    assert (lse_rows.launches, lse_rows_bwd.launches) == (before[0] + 2,
+                                                          before[1] + 2)
+    assert out.dtype == acc and torch.equal(out, again)
+    assert torch.equal(d, d_again)
+    close_inf(out, ref, dtype)
+    assert out[11] == float("inf")                     # a +inf entry
+    assert (out[0] == float("-inf")) != include_zeros   # an empty row
+    close(d, lse_rows_bwd_plain(ip, v.double(), out.double(), g.double()),
+          dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("p", [3, 8, 128, 130])
+def test_fused_bwd_kernels_match_plain_and_repeat_bitwise(dev, dtype, p):
+    plan = _awkward_chunk_plan()
+    gen = torch.Generator().manual_seed(p)
+    vals = torch.randn(plan.nnz, generator=gen).to(dev, dtype)
+    B = torch.randn(plan.m, p, generator=gen).to(dev, dtype)
+    G = torch.randn(plan.n, p, generator=gen).to(dev, dtype)
+    d, dt = plan.maps(dev), plan.T.maps(dev)
+    for v_dtype in {dtype, torch.bfloat16}:
+        args = (d["indptr"], d["cols"], vals, B, G, v_dtype)
+        before = chunk_bwd_pass1.launches, chunk_bwd_pass2.launches
+        (dd, V), (dd2, V2) = chunk_bwd_pass1(*args), chunk_bwd_pass1(*args)
+        pdd, pV = chunk_bwd_pass1_plain(*args)
+        dB, dB2 = (chunk_bwd_pass2(dt["indptr"], dt["perm"], V, dtype)
+                   for _ in range(2))
+        torch.cuda.synchronize()
+        assert (chunk_bwd_pass1.launches, chunk_bwd_pass2.launches) == (
+            before[0] + 2, before[1] + 2)
+        assert torch.equal(dd, dd2) and torch.equal(V, V2)
+        assert torch.equal(dB, dB2)
+        assert V.dtype == v_dtype and dB.dtype == dtype
+        # dd is K7's arithmetic; V one rounded product
+        assert torch.equal(dd, chunk_sddmm(d["indptr"], d["cols"], G, B))
+        close(dd, pdd, dtype)
+        assert torch.equal(V, pV)
+        close(dB, chunk_bwd_pass2_plain(dt["indptr"], dt["perm"], V, dtype),
+              dtype)
+
+
+@pytest.mark.parametrize("kind", ["stencil", "random", "skewed"])
+def test_logsumexp_on_card_matches_cpu(dev, kind):
+    if kind == "stencil":
+        A = stencil_sparse((3000, 2500), [-700, -1, 0, 1, 40], device="cpu")
+    elif kind == "random":
+        A = rand_sparse((3000, 2500), 30_000, layout="csr", device="cpu")
+    else:                       # hub rows of 1,250 entries: K10 and K11
+        rng = np.random.default_rng(8)
+        keys = np.sort(rng.choice(3000 * 2500, 20_000, replace=False))
+        rows, cols = keys // 2500, keys % 2500
+        hub = rows % 100 == 0
+        rows = np.concatenate([rows[~hub]] + [np.full(1250, r) for r in
+                                              range(0, 3000, 100)])
+        cols = np.concatenate([cols[~hub]] + [np.sort(rng.choice(
+            2500, 1250, False)) for _ in range(0, 3000, 100)])
+        o = np.lexsort((cols, rows))
+        A = SparseCOO(rows[o], cols[o], torch.from_numpy(rng.standard_normal(
+            len(o)).astype(np.float32)), (3000, 2500)).tocsr()
+    n, m = A.shape
+
+    def run(device, backend):
+        v = A.values.to(device).requires_grad_(True)
+        M = A.with_data(v)
+        outs = [sparse_logsumexp(M, 1, backend=backend),
+                sparse_logsumexp(M, 0, include_zeros=False, backend=backend),
+                *sparse_bidir_logsumexp(M, backend=backend)]
+        cts = [torch.linspace(-1, 1, o.numel(), device=device) for o in outs]
+        (gv,) = torch.autograd.grad(outs, v, cts, create_graph=True)
+        (hv,) = torch.autograd.grad((gv ** 2).sum(), v)
+        return [*outs, gv, hv]
+
+    before = lse_rows.launches, lse_rows_bwd.launches
+    got = run(dev, "auto")
+    torch.cuda.synchronize()
+    chunk = (lse_rows.launches - before[0], lse_rows_bwd.launches - before[1])
+    assert (chunk[0] > 0 and chunk[1] > 0) == (kind == "skewed")
+    for x, ref in zip(got, run("cpu", "xla")):
+        close_inf(x.detach(), ref.detach(), torch.float32)
+
+
+def test_sparse_mm_fused_on_card_matches_split(dev, monkeypatch):
+    A = rand_sparse((3000, 2500), 30_000, layout="csr", device=dev)
+    g = torch.Generator().manual_seed(6)
+    B = torch.randn(2500, 24, generator=g).to(dev)
+    G = torch.randn(3000, 24, generator=g).to(dev)
+
+    def run(**kw):
+        v = A.values.detach().clone().requires_grad_(True)
+        b = B.clone().requires_grad_(True)
+        out = sparse_mm(A.with_data(v), b, **kw)
+        gv, gb = torch.autograd.grad(out, (v, b), G, create_graph=True)
+        return [gv, gb, *torch.autograd.grad((gv ** 2).sum()
+                                             + (gb ** 2).sum(), (v, b))]
+
+    split = run()
+    monkeypatch.setattr(dia, "SPMM_BWD", "fused")
+    before = chunk_bwd_pass1.launches, chunk_bwd_pass2.launches
+    for gp in ("exact", "fast"):
+        got = run(grad_precision=gp)
+        close(got[0], split[0], torch.float32)
+        if gp == "exact":
+            for x, ref in zip(got[1:], split[1:]):
+                close(x, ref, torch.float32)
+        else:
+            torch.testing.assert_close(got[1], split[1], rtol=3e-2,
+                                       atol=3e-2)
+    torch.cuda.synchronize()
+    assert chunk_bwd_pass1.launches == before[0] + 2
+    assert chunk_bwd_pass2.launches == before[1] + 2
+
+
+def test_lse_and_fused_wrappers_refuse_what_the_kernels_do_not_take(dev):
+    ip = torch.tensor([0, 1, 2], device=dev)
+    v = torch.ones(2, device=dev)
+    with pytest.raises(ValueError, match="per-row tensors"):
+        lse_rows_bwd(ip, v, torch.ones(2, device=dev, dtype=torch.float64),
+                     torch.ones(2, device=dev))
+    with pytest.raises(ValueError, match="float32, bfloat16 or float64"):
+        lse_rows(ip, v.half(), 3, True)
+    x = torch.ones(2, 4, device=dev)
+    with pytest.raises(ValueError, match="B's dtype or bfloat16"):
+        chunk_bwd_pass1(ip, ip[:2], v, x, x, torch.float64)
+    with pytest.raises(ValueError, match="bad operand shapes"):
+        chunk_bwd_pass1(ip, ip[:2], v, x, x[:1], torch.float32)
+    with pytest.raises(ValueError, match="takes V in"):
+        chunk_bwd_pass2(ip, ip[:2], x.double(), torch.float32)
+
+
 def test_wrappers_raise_on_cuda_when_the_build_is_missing(dev, monkeypatch,
                                                           tmp_path):
     monkeypatch.setattr(_build, "BUILD_ROOT", tmp_path / "none")
@@ -301,7 +484,10 @@ def test_wrappers_raise_on_cuda_when_the_build_is_missing(dev, monkeypatch,
         for call in (lambda: spmm_core(offs, x, x),
                      lambda: sddmm_core(offs, x, x),
                      lambda: window_gather(x[:, 0], offs),
-                     lambda: tri_dia_core(np.array([0]), x, x, unit=False)):
+                     lambda: tri_dia_core(np.array([0]), x, x, unit=False),
+                     lambda: lse_rows(offs[:1].repeat(2), x[:0, 0], 1, True),
+                     lambda: chunk_bwd_pass2(offs.repeat(2), offs, x[:1],
+                                             torch.float32)):
             with pytest.raises(RuntimeError, match="nvcc"):
                 call()
     finally:

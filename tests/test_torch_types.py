@@ -90,6 +90,32 @@ def test_batched_round_trip_per_element_and_shared():
                                   np.asarray(S.todense()))
 
 
+def test_csc_round_trip_with_jax_containers():
+    from torchsparsegradutils_tpu import SparseCSC as JCSC
+    from torchsparsegradutils_tpu_torch import SparseCSC
+    At = rand_sparse((7, 9), 20, "csr")           # the CSR of Aᵀ
+    Aj = JCSC(At.indptr_np(), At.cols_np(), np.asarray(At.data), (9, 7))
+    A = from_arrays("csc", At.indptr_np(), At.cols_np(),
+                    np.asarray(At.data), (9, 7), device="cpu")
+    assert isinstance(A, SparseCSC) and A.layout == "csc"
+    assert (A.shape, A.nnz, A.ndim) == ((9, 7), 20, 2)
+    np.testing.assert_array_equal(A.todense().numpy(),
+                                  np.asarray(Aj.todense()))
+    lay, i0, i1, data, shape = to_arrays(A)
+    assert lay == "csc" and shape == (9, 7)
+    np.testing.assert_array_equal(
+        np.asarray(JCSC(i0, i1, data, shape).todense()),
+        np.asarray(Aj.todense()))
+    assert A.transpose_csr().shape == (7, 9)
+    B = A.with_data(2 * A.values)
+    assert B.indptr is A.indptr and B.shape == A.shape
+    np.testing.assert_array_equal(B.todense().numpy(),
+                                  2 * A.todense().numpy())
+    with pytest.raises(ValueError, match="2-D"):
+        SparseCSC(At.indptr_np(), At.cols_np(), np.asarray(At.data),
+                  (1, 9, 7))
+
+
 @pytest.mark.parametrize("layout", ["coo", "csr"])
 def test_transpose_matches_jax(layout):
     Aj = rand_sparse((8, 11), 25, layout)
@@ -207,6 +233,9 @@ def test_build_key_follows_sources():
     "torchsparsegradutils_tpu_torch.kernels.dia",
     "torchsparsegradutils_tpu_torch.kernels.chunk_spmm",
     "torchsparsegradutils_tpu_torch.kernels.window_gather",
+    "torchsparsegradutils_tpu_torch.kernels.grid_lse",
+    "torchsparsegradutils_tpu_torch.kernels.chunk_lse",
+    "torchsparsegradutils_tpu_torch.ops.logsumexp",
     "torchsparsegradutils_tpu_torch.utils.random_sparse",
 ])
 def test_docstring_examples(module_name):

@@ -20,7 +20,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .types import SparseCOO, SparseCSR
+from .types import SparseCOO, SparseCSC, SparseCSR
 
 __all__ = ["from_arrays", "to_arrays"]
 
@@ -29,8 +29,9 @@ def from_arrays(layout: str, idx0, idx1, data, shape, *, device="cuda"):
     """Container from index and value arrays.
 
     Args:
-      layout: ``"coo"`` (``idx0`` rows, ``idx1`` columns) or ``"csr"``
-        (``idx0`` row pointers, ``idx1`` column indices).
+      layout: ``"coo"`` (``idx0`` rows, ``idx1`` columns), ``"csr"``
+        (``idx0`` row pointers, ``idx1`` column indices) or ``"csc"``
+        (``idx0`` column pointers, ``idx1`` row indices; 2-D only).
       data: ``(*batch, nnz)`` values; float32, float64 or bfloat16 arrays
         keep their dtype.
       shape: ``(*batch, n, m)``.
@@ -48,6 +49,8 @@ def from_arrays(layout: str, idx0, idx1, data, shape, *, device="cuda"):
         return SparseCOO(idx0, idx1, data, shape)
     if layout == "csr":
         return SparseCSR(idx0, idx1, data, shape)
+    if layout == "csc":
+        return SparseCSC(idx0, idx1, data, shape)
     raise ValueError(f"from_arrays: unknown layout {layout!r}")
 
 
@@ -65,5 +68,7 @@ def to_arrays(A):
         return "coo", A.rows(), A.cols(), data, A.shape
     if isinstance(A, SparseCSR):
         return "csr", A.indptr_np(), A.cols(), data, A.shape
-    raise TypeError(f"to_arrays: expected SparseCOO or SparseCSR, got "
-                    f"{type(A).__name__}")
+    if isinstance(A, SparseCSC):
+        return "csc", A.indptr.arr, A.indices.arr, data, A.shape
+    raise TypeError(f"to_arrays: expected SparseCOO, SparseCSR or "
+                    f"SparseCSC, got {type(A).__name__}")

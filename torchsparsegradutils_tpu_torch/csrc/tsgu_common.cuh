@@ -60,6 +60,13 @@ __device__ __forceinline__ void load4(const double* p, double (&v)[4]) {
   v[0] = a.x; v[1] = a.y; v[2] = b.x; v[3] = b.y;
 }
 
+__device__ __forceinline__ void load4(const __nv_bfloat16* p,
+                                      double (&v)[4]) {
+  float f[4];
+  load4(p, f);
+  v[0] = f[0]; v[1] = f[1]; v[2] = f[2]; v[3] = f[3];
+}
+
 __device__ __forceinline__ void store4(float* p, const float (&v)[4]) {
   *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
 }
@@ -70,6 +77,13 @@ __device__ __forceinline__ void store4(__nv_bfloat16* p, const float (&v)[4]) {
   memcpy(&q.x, &a, 4);
   memcpy(&q.y, &b, 4);
   *reinterpret_cast<uint2*>(p) = q;
+}
+// float64 sums stored in bfloat16 (the fused backward's V under "fast"):
+// through float, as PyTorch converts (store_acc takes them the same way)
+__device__ __forceinline__ void store4(__nv_bfloat16* p,
+                                       const double (&v)[4]) {
+  const float f[4] = {(float)v[0], (float)v[1], (float)v[2], (float)v[3]};
+  store4(p, f);
 }
 __device__ __forceinline__ void store4(double* p, const double (&v)[4]) {
   reinterpret_cast<double2*>(p)[0] = make_double2(v[0], v[1]);

@@ -35,7 +35,7 @@ BUILD_ROOT = _PKG.parent / "build" / "tsgu_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 KERNELS = ("dia_spmm", "dia_sddmm", "gather", "chunk_spmm", "chunk_sddmm",
-           "chunk_spmv", "tri_dia")
+           "chunk_spmv", "tri_dia", "chunk_lse", "chunk_bwd_fused")
 
 
 def _nvcc() -> str:
@@ -99,6 +99,11 @@ def libraries() -> dict:
 
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16",
            torch.float64: "f64"}
+
+
+def suffix(dtype: torch.dtype) -> str:
+    """The C entries' name suffix of a storage dtype."""
+    return _SUFFIX[dtype]
 
 
 def acc_dtype(dtype: torch.dtype) -> torch.dtype:

@@ -45,12 +45,14 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..types import StaticArray
 from . import _build
 from .window_gather import WindowGather
 
 __all__ = ["ChunkPlan", "build_chunk_plan", "build_chunk_plan_transpose",
-           "chunk_spmm", "chunk_sddmm", "chunk_spmv", "ChunkSpmm",
-           "ChunkSddmm"]
+           "transpose_order", "chunk_spmm", "chunk_sddmm", "chunk_spmv",
+           "chunk_bwd_pass1", "chunk_bwd_pass2", "chunk_bwd_fused",
+           "ChunkSpmm", "ChunkSddmm", "ChunkBwdPair"]
 
 TILE = 128               # columns a warp covers per block (csrc TILE)
 MAX_COL_BLOCKS = 65535   # CUDA grid y limit: chunk_spmm takes p <= TILE x this
@@ -156,6 +158,34 @@ def build_chunk_plan_transpose(rows_sa, cols_sa, n: int,
     transpose; here such patterns take the generic branch throughout.)"""
     row_plan = build_chunk_plan(rows_sa, cols_sa, n, m)
     return None if row_plan is None else row_plan.T
+
+
+@lru_cache(maxsize=64)
+def transpose_order(rows_sa, cols_sa, n: int, m: int):
+    """The pattern's entries sorted by (column, row), for patterns with
+    or without sorted rows: ``(rows_t, cols_t, perm, inv)``, the
+    transpose's row and column :class:`StaticArray`s, ``perm[d]`` the
+    entry at sorted position ``d`` and ``inv`` its inverse (both
+    StaticArrays, so ``.on(device)`` gives the K3 gather's maps).  A
+    row-sorted pattern shares its row plan's transpose (``plan.T``);
+    any other takes the same lexsort.  None for an empty or batched
+    pattern."""
+    rows, cols = rows_sa.arr, cols_sa.arr
+    if rows.ndim != 1 or len(rows) == 0:
+        return None
+    plan = build_chunk_plan(rows_sa, cols_sa, n, m)
+    if plan is not None:
+        pt = plan.T          # copies: a StaticArray makes its array read-only
+        perm, inv, ct = pt.perm.copy(), pt.inv.copy(), pt.cols.copy()
+        rt = np.repeat(np.arange(m, dtype=np.int64), np.diff(pt.indptr))
+    else:
+        rows, cols = rows.astype(np.int64), cols.astype(np.int64)
+        perm = np.lexsort((rows, cols)).astype(np.int64)
+        inv = np.empty_like(perm)
+        inv[perm] = np.arange(len(perm), dtype=np.int64)
+        rt, ct = cols[perm], rows[perm]
+    return (StaticArray(rt), StaticArray(ct), StaticArray(perm),
+            StaticArray(inv))
 
 
 # --------------------------------------------------------------------------
@@ -284,6 +314,120 @@ def chunk_spmv(indptr: torch.Tensor, cols: torch.Tensor,
 chunk_spmv.launches = 0
 
 
+def chunk_bwd_pass1_plain(indptr, cols, values, B, G, v_dtype):
+    """Plain PyTorch version of :func:`chunk_bwd_pass1`."""
+    acc = _build.acc_dtype(B.dtype)
+    V = values.to(acc)[:, None] * G.to(acc).index_select(
+        0, _entry_rows(indptr))
+    return chunk_sddmm_plain(indptr, cols, G, B), V.to(v_dtype)
+
+
+def chunk_bwd_pass1(indptr: torch.Tensor, cols: torch.Tensor,
+                    values: torch.Tensor, B: torch.Tensor, G: torch.Tensor,
+                    v_dtype: torch.dtype):
+    """Pass 1 of the fused backward of ``A @ B`` (K12a): ``dd[e] =
+    dot(G[r], B[cols[e]])`` and ``V[e, :] = values[e] · G[r, :]`` for the
+    entries of row ``r``: G (n, p), B (m, p) -> dd (nnz,), V (nnz, p) in
+    ``v_dtype`` (B's dtype, or bfloat16 under ``grad_precision="fast"``).
+
+    CPU tensors take :func:`chunk_bwd_pass1_plain`; CUDA tensors launch
+    ``csrc/chunk_bwd_fused.cu`` and raise on what it does not take.
+    """
+    if all(t.device.type == "cpu" for t in (indptr, cols, values, B, G)):
+        return chunk_bwd_pass1_plain(indptr, cols, values, B, G, v_dtype)
+    suffix = _build.cuda_operands("chunk_bwd_pass1", (values, B, G),
+                                  (indptr, cols))
+    if indptr.ndim != 1 or values.shape != cols.shape or cols.ndim != 1 \
+            or B.ndim != 2 or G.shape != (indptr.shape[0] - 1, B.shape[1]):
+        raise _shapes("chunk_bwd_pass1", indptr, cols, values, B, G)
+    if v_dtype not in (B.dtype, torch.bfloat16):
+        raise ValueError(f"chunk_bwd_pass1: V is stored in B's dtype or "
+                         f"bfloat16, got {v_dtype}")
+    n, p = G.shape
+    dd = torch.empty_like(values)
+    V = torch.empty((values.shape[0], p), dtype=v_dtype, device=B.device)
+    if V.numel() == 0:
+        return dd.zero_(), V
+    _build.launch("chunk_bwd_fused",
+                  f"tsgu_chunk_bwd_rows_{suffix}_{_build.suffix(v_dtype)}",
+                  indptr, cols, values, B, G, dd, V, n, p)
+    chunk_bwd_pass1.launches += 1
+    return dd, V
+
+
+chunk_bwd_pass1.launches = 0
+
+
+def chunk_bwd_pass2_plain(indptr_t, perm, V, dtype):
+    """Plain PyTorch version of :func:`chunk_bwd_pass2`."""
+    acc = _build.acc_dtype(dtype)
+    out = torch.zeros((indptr_t.shape[0] - 1, V.shape[1]), dtype=acc,
+                      device=V.device)
+    return out.index_add_(0, _entry_rows(indptr_t),
+                          V.index_select(0, perm).to(acc)).to(dtype)
+
+
+def chunk_bwd_pass2(indptr_t: torch.Tensor, perm: torch.Tensor,
+                    V: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """Pass 2 of the fused backward (K12b): ``d_B[c, :] = Σ V[perm[d], :]``
+    over the transpose plan's entries ``d`` of column ``c``: indptr_t
+    (m+1,), perm (nnz,), V (nnz, p) -> (m, p) in ``dtype``.
+
+    CPU tensors take :func:`chunk_bwd_pass2_plain`; CUDA tensors launch
+    ``csrc/chunk_bwd_fused.cu`` and raise on what it does not take.
+    """
+    if all(t.device.type == "cpu" for t in (indptr_t, perm, V)):
+        return chunk_bwd_pass2_plain(indptr_t, perm, V, dtype)
+    v_suffix = _build.cuda_operands("chunk_bwd_pass2", (V,),
+                                    (indptr_t, perm))
+    if indptr_t.ndim != 1 or perm.ndim != 1 or V.ndim != 2 \
+            or V.shape[0] != perm.shape[0]:
+        raise _shapes("chunk_bwd_pass2", indptr_t, perm, V)
+    if V.dtype not in (dtype, torch.bfloat16) or \
+            dtype not in (torch.float32, torch.bfloat16, torch.float64):
+        raise ValueError(f"chunk_bwd_pass2: takes V in {dtype} or "
+                         f"bfloat16, got {V.dtype}")
+    m, p = indptr_t.shape[0] - 1, V.shape[1]
+    if p > TILE * MAX_COL_BLOCKS:
+        raise ValueError(f"chunk_bwd_pass2: takes p <= "
+                         f"{TILE * MAX_COL_BLOCKS}, got {p}")
+    out = torch.empty((m, p), dtype=dtype, device=V.device)
+    if out.numel() == 0:
+        return out
+    _build.launch("chunk_bwd_fused",
+                  f"tsgu_chunk_bwd_cols_{_build.suffix(dtype)}_{v_suffix}",
+                  indptr_t, perm, V, out, m, p)
+    chunk_bwd_pass2.launches += 1
+    return out
+
+
+chunk_bwd_pass2.launches = 0
+
+
+def chunk_bwd_fused(plan: "ChunkPlan", plan_t: "ChunkPlan", values, B, G,
+                    fast: bool = False):
+    """``(d_values, d_B)`` of ``A @ B`` for the output cotangent ``G`` by
+    the fused backward: pass 1 over ``plan`` (gradA and the V rows),
+    pass 2 over the transpose plan ``plan_t``, which sums V's rows in
+    column order with no per-entry value reorder.  ``fast`` stores V in
+    bfloat16 (half its bytes; gradB gains about 1e-3 relative error,
+    gradA stays exact)."""
+    d, dt = plan.maps(B.device), plan_t.maps(B.device)
+    dd, V = chunk_bwd_pass1(d["indptr"], d["cols"], values.contiguous(),
+                            B.contiguous(), G.contiguous(),
+                            torch.bfloat16 if fast else B.dtype)
+    return dd, chunk_bwd_pass2(dt["indptr"], dt["perm"], V, B.dtype)
+
+
+def chunk_bwd_fused_plain(plan: "ChunkPlan", plan_t: "ChunkPlan", values, B,
+                          G, fast: bool = False):
+    """Plain PyTorch version of :func:`chunk_bwd_fused`, on any device."""
+    d, dt = plan.maps(B.device), plan_t.maps(B.device)
+    dd, V = chunk_bwd_pass1_plain(d["indptr"], d["cols"], values, B, G,
+                                  torch.bfloat16 if fast else B.dtype)
+    return dd, chunk_bwd_pass2_plain(dt["indptr"], dt["perm"], V, B.dtype)
+
+
 # --------------------------------------------------------------------------
 # differentiable Functions
 # --------------------------------------------------------------------------
@@ -293,13 +437,16 @@ class ChunkSpmm(torch.autograd.Function):
     the plan's entry order; p = 1 runs :func:`chunk_spmv`, wider B
     :func:`chunk_spmm`.
 
-    Backward: ``d_values = ChunkSddmm(plan, G, B)`` and
-    ``d_B = ChunkSpmm(plan.T, plan.to_T(values), G)``.
+    Backward, split (``fused`` None, the default): ``d_values =
+    ChunkSddmm(plan, G, B)`` and ``d_B = ChunkSpmm(plan.T,
+    plan.to_T(values), G)``.  With ``fused`` a bool (the
+    ``kernels/dia.py:SPMM_BWD = "fused"`` switch), both come from
+    :class:`ChunkBwdPair`, V in bfloat16 when ``fused`` is True.
     """
 
     @staticmethod
-    def forward(ctx, plan, values, B):
-        ctx.plan = plan
+    def forward(ctx, plan, values, B, fused=None):
+        ctx.plan, ctx.fused = plan, fused
         ctx.save_for_backward(values, B)
         d = plan.maps(B.device)
         values, B = values.contiguous(), B.contiguous()
@@ -312,12 +459,45 @@ class ChunkSpmm(torch.autograd.Function):
     def backward(ctx, G):
         values, B = ctx.saved_tensors
         plan = ctx.plan
+        need = ctx.needs_input_grad
+        if ctx.fused is not None and need[1] and need[2]:
+            d_values, d_B = ChunkBwdPair.apply(plan, ctx.fused, values, B, G)
+            return None, d_values, d_B, None
         d_values = d_B = None
-        if ctx.needs_input_grad[1]:
+        if need[1]:
             d_values = ChunkSddmm.apply(plan, G, B)
-        if ctx.needs_input_grad[2]:
+        if need[2]:
             d_B = ChunkSpmm.apply(plan.T, plan.to_T(values), G)
-        return None, d_values, d_B
+        return None, d_values, d_B, None
+
+
+class ChunkBwdPair(torch.autograd.Function):
+    """``(d_values, d_B)`` of ``A @ B`` by :func:`chunk_bwd_fused` (K12a,
+    K12b), the JAX package's ``_spmm_bwd_pair`` under
+    ``TSGU_SPMM_BWD=fused``.  Its own backward is built from
+    :class:`ChunkSddmm` and :class:`ChunkSpmm` (split), so second
+    derivatives match the split backward's."""
+
+    @staticmethod
+    def forward(ctx, plan, fast, values, B, G):
+        ctx.plan = plan
+        ctx.save_for_backward(values, B, G)
+        return chunk_bwd_fused(plan, plan.T, values, B, G, fast)
+
+    @staticmethod
+    def backward(ctx, ct_dd, ct_dB):
+        values, B, G = ctx.saved_tensors
+        plan = ctx.plan
+        need = ctx.needs_input_grad
+        d_values = d_B = d_G = None
+        if need[2]:                     # from d_B = Aᵀ G
+            d_values = ChunkSddmm.apply(plan, G, ct_dB)
+        if need[3]:                     # from d_values = sddmm(G, B)
+            d_B = ChunkSpmm.apply(plan.T, plan.to_T(ct_dd), G)
+        if need[4]:
+            d_G = ChunkSpmm.apply(plan, ct_dd, B) + ChunkSpmm.apply(
+                plan, values, ct_dB)
+        return None, None, d_values, d_B, d_G
 
 
 class ChunkSddmm(torch.autograd.Function):

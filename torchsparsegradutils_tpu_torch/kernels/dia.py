@@ -59,7 +59,8 @@ import torch.nn.functional as F
 
 from ..types import StaticArray
 from . import _build
-from .chunk_spmm import ChunkSddmm, ChunkSpmm, build_chunk_plan
+from .chunk_spmm import (ChunkBwdPair, ChunkSddmm, ChunkSpmm,
+                         build_chunk_plan)
 from .window_gather import WindowGather
 
 MAX_DIAGS = 256          # offsets above this: not DIA-structured
@@ -468,6 +469,26 @@ RESID_MIN_NNZ = 4096     # below this the gather + index_add branch is fine
 # entries or more), "chunk" (always, also on the CPU, where the kernels'
 # plain versions run), "xla" (never).  Tests monkeypatch it.
 RESID_ENGINE = "auto"
+# Backward of the chunk engine's A @ B, in place of the JAX package's
+# TSGU_SPMM_BWD: "split" (K7 for gradA, K6 over the transpose plan on
+# values reordered by the K3 gather for gradB) or "fused" (K12: one pass
+# writing gradA and the (nnz, p) rows V = val · G[row], then their
+# column-order sum).  It covers sparse_mm's chunk path and the hybrid
+# residual.  The fused pair moves more bytes than split (the V rows), on
+# the card as on the TPU, so split stays the default.
+SPMM_BWD = "split"
+
+
+def chunk_bwd_fused_arg(grad_precision: str = "exact"):
+    """``ChunkSpmm``'s ``fused`` argument under :data:`SPMM_BWD`: None
+    for the split backward, else whether V is stored in bfloat16
+    (``grad_precision="fast"``)."""
+    if SPMM_BWD == "split":
+        return None
+    if SPMM_BWD != "fused":
+        raise ValueError(f"SPMM_BWD must be 'split' or 'fused', got "
+                         f"{SPMM_BWD!r}")
+    return grad_precision == "fast"
 
 
 @lru_cache(maxsize=64)
@@ -490,10 +511,10 @@ def _resid_chunk_ok(plan: DiaPlan, device: torch.device) -> bool:
         device.type == "cuda" and len(plan.resid_sel) >= RESID_MIN_NNZ)
 
 
-def _resid_spmm(plan: DiaPlan, rvals, B):
-    """Residual entries' share of A @ B."""
+def _resid_spmm(plan: DiaPlan, rvals, B, fused=None):
+    """Residual entries' share of A @ B; ``fused`` as ChunkSpmm's."""
     if _resid_chunk_ok(plan, B.device):
-        return ChunkSpmm.apply(_resid_chunk_plan(plan), rvals, B)
+        return ChunkSpmm.apply(_resid_chunk_plan(plan), rvals, B, fused)
     d = plan.maps(B.device)
     prod = rvals[:, None] * B.index_select(0, d["resid_cols"])
     out = torch.zeros((plan.n, B.shape[1]), dtype=B.dtype, device=B.device)
@@ -526,12 +547,13 @@ def _resid_sddmm(plan: DiaPlan, X, Y):
 # entry points
 # --------------------------------------------------------------------------
 
-def dia_spmm(plan: DiaPlan, values: torch.Tensor,
-             B: torch.Tensor) -> torch.Tensor:
-    """A @ B for A in DIA form (plus the residual of a hybrid plan)."""
+def dia_spmm(plan: DiaPlan, values: torch.Tensor, B: torch.Tensor,
+             fused=None) -> torch.Tensor:
+    """A @ B for A in DIA form (plus the residual of a hybrid plan, whose
+    backward ``fused`` picks as ChunkSpmm's)."""
     out = DiaSpmmCore.apply(plan.geo, values_to_grid(plan, values), B)
     if plan.is_hybrid:
-        out = out + _resid_spmm(plan, resid_values(plan, values), B)
+        out = out + _resid_spmm(plan, resid_values(plan, values), B, fused)
     return out
 
 
@@ -556,15 +578,27 @@ def dia_sddmm(plan: DiaPlan, X: torch.Tensor, Y: torch.Tensor):
     return vals
 
 
-def dia_bwd_pair(plan: DiaPlan, values, B, g, gv=None):
+def dia_bwd_pair(plan: DiaPlan, values, B, g, gv=None, fast=False):
     """``(d_values, d_B)`` of ``A @ B`` for the output cotangent ``g``:
     the SDDMM at the pattern and Aᵀ g.  Built of the differentiable
-    Functions, so it can be differentiated again."""
+    Functions, so it can be differentiated again.  Under ``SPMM_BWD =
+    "fused"`` a residual on the chunk engine takes the fused pair (V in
+    bfloat16 when ``fast``)."""
+    grid = values_to_grid(plan, values) if gv is None else gv
     d_values = grid_to_values(plan, DiaSddmmCore.apply(plan.geo, g, B))
+    d_B = DiaSpmmCore.apply(plan.geo.T, plan.geo.shift(grid), g)
     if plan.is_hybrid:
-        d_values = d_values + resid_expand_values(
-            plan, _resid_sddmm(plan, g, B))
-    return d_values, dia_spmm_transpose(plan, values, g, gv=gv)
+        rv = resid_values(plan, values)
+        fused = chunk_bwd_fused_arg("fast" if fast else "exact")
+        if fused is not None and _resid_chunk_ok(plan, g.device):
+            d_rv, d_B_r = ChunkBwdPair.apply(_resid_chunk_plan(plan), fused,
+                                             rv, B, g)
+        else:
+            d_rv, d_B_r = _resid_sddmm(plan, g, B), _resid_spmm_t(plan, rv,
+                                                                  g)
+        d_values = d_values + resid_expand_values(plan, d_rv)
+        d_B = d_B + d_B_r
+    return d_values, d_B
 
 
 def prepared_matvec(plan: DiaPlan, values: torch.Tensor, transpose: bool):

@@ -28,7 +28,8 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-__all__ = ["SparseCOO", "SparseCSR", "StaticArray", "is_sparse"]
+__all__ = ["SparseCOO", "SparseCSR", "SparseCSC", "StaticArray",
+           "is_sparse"]
 
 
 class StaticArray:
@@ -429,3 +430,79 @@ class SparseCSR(_SparseBase):
     @property
     def T(self) -> "SparseCSR":
         return self.transpose()
+
+
+class SparseCSC:
+    """Compressed-sparse-column matrix (2-D), as the JAX package's
+    ``SparseCSC``: stored as the CSR of its transpose, with the shape
+    swapped back at the boundary.  ``sparse_logsumexp`` and
+    ``sparse_bidir_logsumexp`` take it; the other ops take its
+    :meth:`transpose_csr`.
+
+    Attributes:
+      indptr: ``(m+1,)`` column pointers.
+      indices: ``(nnz,)`` row indices.
+      values: ``(nnz,)`` tensor in column-major order, the
+        differentiable leaf.
+      shape: ``(n, m)``.
+    """
+
+    def __init__(self, indptr, indices, values, shape, *, index_dtype=None,
+                 device=None):
+        shape = tuple(int(s) for s in shape)
+        if len(shape) != 2:
+            raise ValueError("SparseCSC supports 2-D matrices only")
+        self._t = SparseCSR(indptr, indices, values, (shape[1], shape[0]),
+                            index_dtype=index_dtype, device=device)
+        self.shape = shape
+
+    @property
+    def layout(self) -> str:
+        return "csc"
+
+    @property
+    def ndim(self) -> int:
+        return 2
+
+    @property
+    def indptr(self) -> StaticArray:
+        return self._t.indptr
+
+    @property
+    def indices(self) -> StaticArray:
+        return self._t.indices
+
+    @property
+    def values(self) -> torch.Tensor:
+        return self._t.values
+
+    data = values
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self._t.dtype
+
+    @property
+    def device(self) -> torch.device:
+        return self._t.device
+
+    @property
+    def nnz(self) -> int:
+        return self._t.nnz
+
+    def __repr__(self) -> str:
+        return (f"SparseCSC(shape={self.shape}, nnz={self.nnz}, "
+                f"dtype={self.dtype}, device={self.device})")
+
+    def transpose_csr(self) -> SparseCSR:
+        """The transpose as a CSR container (no copy)."""
+        return self._t
+
+    def with_data(self, values) -> "SparseCSC":
+        obj = object.__new__(SparseCSC)
+        obj._t = self._t.with_data(values)
+        obj.shape = self.shape
+        return obj
+
+    def todense(self) -> torch.Tensor:
+        return self._t.todense().T
