@@ -5,9 +5,10 @@ Run from the repository root with one CUDA card visible:
 
     python3 chip_smoke.py
 
-It imports only ``torch``, numpy and ``torchsparsegradutils_tpu_torch``
-(nothing of JAX), and runs five phases; any failure raises and the
-script exits non-zero without its last line:
+It imports only ``torch`` (``torch.distributed`` too), numpy and
+``torchsparsegradutils_tpu_torch`` (nothing of JAX), and runs five
+phases; any failure raises and the script exits non-zero without its
+last line:
 
 1. prints the card's name and power limit (``nvidia-smi``), builds the
    CUDA kernels of ``torchsparsegradutils_tpu_torch/csrc`` (one ``nvcc``
@@ -49,11 +50,27 @@ script exits non-zero without its last line:
    ``grad_precision="fast"``), against the split backward (the LSE and
    fused kernels also against their plain versions at the cfd2 shapes
    and small awkward ones in phase 2);
+   then (3d) ``parallel/`` on a one-rank NCCL group (a ``FileStore`` in
+   a temporary directory, destroyed at the end): K13, the row-slab SpMM,
+   against its plain version on each slab of a 4-shard plan of the
+   random pattern and on the whole matrix (three dtypes, bitwise
+   repeats, each slab's rows bitwise K6's) and on the small awkward and
+   uneven patterns at p = 3; ``sharded_chunk_spmm`` (K13 must launch,
+   its plain version must not) and ``sharded_sparse_mm`` on the random
+   pattern and ``sharded_dia_spmm`` on the stencil, forward and backward
+   through their entry points at world size 1 and as the 4-shard
+   layout's per-rank bodies, against the unsharded ``sparse_mm``; the
+   flagship train step at full width (``make_model((1, 48, 48, 48),
+   radius=1.5)``: 110,592 voxels, 961,056 entries, 128 observations,
+   five SGD steps at lr 1e-2; the loss must fall and step 1 match the
+   unsharded ``loss_fn`` step); K13's time per slab beside its bound,
+   plain version and ``torch.sparse.mm``, the sharded steps beside the
+   unsharded ones, and the train step with a profile;
 4. times the chained forward and forward+backward steps, profiles
    seven of them, times the triangular solve's host plans, and times each
    kernel, its plain version and one PyTorch library call that computes
    the same function, with CUDA events, and prints them as a
-   ``{"kernels": [...]}`` line;
+   ``{"kernels": [...]}`` line (twelve rows, K13's from phase 3d);
 5. prints ``{"ok": true, "device": {...}}`` as the last line.
 
 Without a CUDA device it exits 1 and prints no result.
@@ -178,7 +195,7 @@ def counters():
         lse_rows, lse_rows_bwd)
     from torchsparsegradutils_tpu_torch.kernels.chunk_spmm import (
         chunk_bwd_pass1, chunk_bwd_pass2, chunk_sddmm, chunk_spmm,
-        chunk_spmv)
+        chunk_spmm_slab, chunk_spmv)
     from torchsparsegradutils_tpu_torch.kernels.dia import (sddmm_core,
                                                             spmm_core)
     from torchsparsegradutils_tpu_torch.kernels.dia_tri import tri_dia_core
@@ -189,7 +206,8 @@ def counters():
             "chunk_sddmm": chunk_sddmm, "chunk_spmv": chunk_spmv,
             "tri_dia": tri_dia_core, "lse_rows": lse_rows,
             "lse_rows_bwd": lse_rows_bwd, "chunk_bwd_pass1": chunk_bwd_pass1,
-            "chunk_bwd_pass2": chunk_bwd_pass2}
+            "chunk_bwd_pass2": chunk_bwd_pass2,
+            "chunk_spmm_slab": chunk_spmm_slab}
 
 
 def track_routes():
@@ -548,6 +566,323 @@ def drive_lse(label, A, expect, forbid):
     return launches
 
 
+def slab_bound(plan, s, p, es):
+    """Bound of K13 on slab ``s`` of a sharded chunk plan: its values,
+    columns and row pointers, the distinct B rows it reads and its output
+    slab, each moved once, or its 2 nnz p operations."""
+    import numpy as np
+    lo, hi = int(plan.bounds[s]), int(plan.bounds[s + 1])
+    rps = plan.rows_per_shard
+    ucols = len(np.unique(plan.cols[lo:hi]))
+    return bound((hi - lo) * (es + 8) + (rps + 1) * 8
+                 + (ucols + rps) * p * es, 2 * (hi - lo) * p)
+
+
+def check_slab_kernel(label, indptr, cols, vals, B, slabs, dt_name,
+                      whole=None):
+    """K13 on each ``(row0, rps)`` of ``slabs`` against its plain version,
+    launched twice and bitwise equal; with ``whole`` (K6's output on the
+    same operands) each slab's rows also bitwise equal to K6's, as the
+    two share their row loop.  Returns the largest error."""
+    import torch
+    from torchsparsegradutils_tpu_torch.kernels.chunk_spmm import (
+        chunk_spmm_slab, chunk_spmm_slab_plain)
+    n = indptr.shape[0] - 1
+    err = 0.0
+    for row0, rps in slabs:
+        args = (indptr, cols, vals, B, row0, rps)
+        got, again = chunk_spmm_slab(*args), chunk_spmm_slab(*args)
+        if not torch.equal(got, again):
+            raise AssertionError(f"{label} K13 slab {row0}+{rps} "
+                                 f"[{dt_name}]: two launches differ")
+        inside = max(0, min(rps, n - row0))
+        if got[inside:].any():
+            raise AssertionError(f"{label} K13 slab {row0}+{rps}: padding "
+                                 "rows are not 0")
+        if whole is not None and not torch.equal(
+                got[:inside], whole[row0:row0 + inside]):
+            raise AssertionError(f"{label} K13 slab {row0}+{rps} "
+                                 f"[{dt_name}]: rows differ from K6's")
+        err = max(err, close(f"{label} K13 rows {row0}..{row0 + rps} "
+                             "(repeats bitwise)", got,
+                             chunk_spmm_slab_plain(*args), dt_name))
+    return err
+
+
+def grads_close(label, got, ref, what=("out", "gradA", "gradB")):
+    for name, g, r in zip(what, got, ref):
+        close(f"{label} {name}", g, r, "float32")
+
+
+def chained_step(fn, v0, b0, G, eps=1e-6):
+    """A step of ``fn(v, b)`` forward and backward for the cotangent G,
+    whose gradients feed the next step's inputs (so steps chain)."""
+    import torch
+    state = {"v": v0.detach().clone(), "b": b0.detach().clone()}
+
+    def step():
+        v = state["v"].requires_grad_(True)
+        b = state["b"].requires_grad_(True)
+        gv, gb = torch.autograd.grad(fn(v, b), (v, b), G)
+        state["v"] = (v + eps * gv).detach()
+        state["b"] = (b + eps * gb).detach()
+    return step
+
+
+def phase_parallel(R, A, B, G, gen, dev, card):
+    """Phase 3d: ``parallel/`` on a one-rank NCCL group (a ``FileStore``
+    in a temporary directory: no network), destroyed at the end.
+
+    K13 against its plain version at the cfd2 shapes (each slab of a
+    4-shard plan and the whole matrix as one slab; three dtypes) and on
+    the small awkward and uneven plans at p = 3; ``sharded_chunk_spmm``,
+    ``sharded_sparse_mm`` and ``sharded_dia_spmm`` forward and backward
+    through their entry points at world size 1 and as the 4-shard
+    layout's per-rank bodies, against the unsharded ``sparse_mm``; the
+    flagship train step at full width against the unsharded step; and
+    their times.  Returns K13's row of the ``kernels`` line."""
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+    torch.cuda.set_device(dev)
+    tmp = tempfile.mkdtemp(prefix="tsgu_nccl_")
+    dist.init_process_group("nccl", store=dist.FileStore(
+        os.path.join(tmp, "store"), 1), rank=0, world_size=1)
+    try:
+        return parallel_checks(R, A, B, G, gen, dev, card)
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def parallel_checks(R, A, B, G, gen, dev, card):
+    """The body of :func:`phase_parallel`, on its one-rank group."""
+    import numpy as np
+    import torch
+    from torchsparsegradutils_tpu_torch import sparse_mm
+    from torchsparsegradutils_tpu_torch.kernels import chunk_spmm as cs
+    from torchsparsegradutils_tpu_torch.parallel import (
+        build_sharded_chunk_plan, init_params, loss_fn, make_model,
+        make_train_step, shard_rows, sharded_chunk_spmm, sharded_dia_spmm,
+        sharded_sparse_mm)
+    from torchsparsegradutils_tpu_torch.parallel.chunk_sharded import (
+        slab_spmm)
+    from torchsparsegradutils_tpu_torch.parallel.dia_sharded import (
+        ShardedDia)
+    from torchsparsegradutils_tpu_torch.parallel.sharding import shard_spmm
+
+    # ---- K13 against its plain version ------------------------------------
+    n, m = R.shape
+    plan4 = build_sharded_chunk_plan(R, 4)
+    plan1 = build_sharded_chunk_plan(R, 1)
+    rps4 = plan4.rows_per_shard
+    slabs = [(s * rps4, rps4) for s in range(4)] + [(0, n)]
+    d = plan1.maps(dev)
+    err = 0.0
+    for dt in (torch.float32, torch.bfloat16, torch.float64):
+        name = str(dt).removeprefix("torch.")
+        vals, b = R.values.to(dt), B.to(dt)
+        whole = cs.chunk_spmm(d["indptr"], d["cols"], vals, b)
+        e = check_slab_kernel("random cfd2 p=128", d["indptr"], d["cols"],
+                              vals, b, slabs, name, whole)
+        del whole
+        small = awkward_pattern()                 # 700 x 6000, p = 3
+        sd = small.maps(dev)
+        sv = torch.randn(small.nnz, generator=gen).to(dev, dt)
+        sB = torch.randn(small.m, 3, generator=gen).to(dev, dt)
+        check_slab_kernel("small awkward p=3", sd["indptr"], sd["cols"], sv,
+                          sB, [(78 * s, 78) for s in range(9)]
+                          + [(0, 700), (702, 8)], name)
+        # tests/test_parallel.py's uneven case: 5 entries in 62 rows, 4
+        # slabs of 16 (two of them empty, the last past n)
+        ui = torch.tensor([0, 2, 3, 3, 3, 3, 4] + [4] * 55 + [5],
+                          device=dev)
+        uc = torch.tensor([1, 3, 2, 0, 4], device=dev)
+        uv = torch.arange(1.0, 6.0, device=dev).to(dt)
+        check_slab_kernel("uneven 62x5 p=3", ui, uc, uv,
+                          torch.randn(5, 3, generator=gen).to(dev, dt),
+                          [(16 * s, 16) for s in range(4)], name)
+        if dt == torch.float32:
+            err = e
+
+    # ---- the sharded ops through their entry points -----------------------
+    ref = fwd_bwd(R, B, G, "auto")                 # unsharded, chunk engine
+    plain_calls = []
+    plain = cs.chunk_spmm_slab_plain
+
+    def counted_plain(*args):
+        plain_calls.append(1)
+        return plain(*args)
+    cs.chunk_spmm_slab_plain = counted_plain
+    try:
+        zero_counters()
+        v = R.values.detach().clone().requires_grad_(True)
+        b = B.detach().clone().requires_grad_(True)
+        out = sharded_chunk_spmm(plan1, v, b)
+        got = (out, *torch.autograd.grad(out, (v, b), G))
+        launches = read_counters("sharded-chunk p=128 (world size 1)",
+                                 ("chunk_spmm_slab", "chunk_sddmm",
+                                  "chunk_spmm", "gather"))
+    finally:
+        cs.chunk_spmm_slab_plain = plain
+    if plain_calls:
+        raise AssertionError("sharded-chunk: K13's plain version ran "
+                             f"{len(plain_calls)} times on the card")
+    grads_close("sharded-chunk vs unsharded sparse_mm", got, ref)
+    v = R.values.detach().clone().requires_grad_(True)
+    b = B.detach().clone().requires_grad_(True)
+    out = torch.cat([slab_spmm(plan4, r, v, b) for r in range(4)])[:n]
+    grads_close("sharded-chunk 4-rank bodies vs unsharded",
+                (out, *torch.autograd.grad(out, (v, b), G)), ref)
+
+    for S in (1, 4):
+        M = shard_rows(R, S)
+        data = M.data.detach().clone().requires_grad_(True)
+        b = B.detach().clone().requires_grad_(True)
+        zero_counters()
+        if S == 1:
+            M.data = data
+            out = sharded_sparse_mm(M, b)
+        else:
+            out = torch.cat([shard_spmm(M, r, data, b)
+                             for r in range(S)])[:n]
+        gd, gb = torch.autograd.grad(out, (data, b), G)
+        read_counters(f"sharded-sparse-mm S={S}", CHUNK_KERNELS)
+        sel = torch.from_numpy(np.concatenate(
+            [np.flatnonzero(M.mask[s]) + s * M.mask.shape[1]
+             for s in range(S)])).to(dev)
+        grads_close(f"sharded_sparse_mm S={S} vs unsharded",
+                    (out, gd.reshape(-1)[sel], gb), ref)
+    del ref, got, out
+
+    ref = fwd_bwd(A, B, G, "auto")                 # unsharded, DIA engine
+    f = sharded_dia_spmm(A)
+    b = torch.nn.functional.pad(B, (0, 0, 0, f.n_padded - n))
+    v = A.values.detach().clone().requires_grad_(True)
+    b = b.requires_grad_(True)
+    zero_counters()
+    out = f(v, b)
+    gv, gb = torch.autograd.grad(out, (v, b), torch.nn.functional.pad(
+        G, (0, 0, 0, f.n_padded - n)))
+    read_counters("sharded-dia p=128 (world size 1)", DIA_KERNELS)
+    grads_close("sharded_dia_spmm vs unsharded", (out[:n], gv, gb[:n]), ref)
+    L4 = ShardedDia(A, 4)
+    v = A.values.detach().clone().requires_grad_(True)
+    b = B.detach().clone().requires_grad_(True)
+    out = torch.cat([L4.slab_spmm(v, L4.window(b, r), r)
+                     for r in range(4)])[:n]
+    print(f"  sharded-dia 4 slabs: rows_per_shard {L4.rows_per_shard}, "
+          f"halo {L4.halo}")
+    grads_close("sharded-dia 4-rank windows vs unsharded",
+                (out, *torch.autograd.grad(out, (v, b), G)), ref)
+    del ref, out
+
+    # ---- the flagship train step at full width ----------------------------
+    enc = make_model((1, 48, 48, 48), radius=1.5)
+    nv = enc.volume_numel
+    print(f"  flagship: {nv} voxels, {len(enc.offsets)} lower offsets, "
+          f"{enc.nnz} entries, 128 observations")
+    params = init_params(enc, torch.Generator().manual_seed(0), dev)
+    x = torch.randn(128, nv, generator=gen)
+    x[:, 1:] += 0.5 * x[:, :-1].clone()            # a correlated Gaussian
+    x = x.to(dev)
+    lr = 1e-2
+    step = make_train_step(enc, 1, 1, lr=lr)
+    leaves = {k: t.clone().requires_grad_(True) for k, t in params.items()}
+    loss_ref = loss_fn(leaves, x, enc)
+    grads = torch.autograd.grad(loss_ref, list(leaves.values()))
+    losses, p = [], params
+    for i in range(5):
+        p, loss = step(p, x)
+        losses.append(loss.item())
+        if i == 0:
+            rel = abs(losses[0] - loss_ref.item()) / abs(loss_ref.item())
+            print(f"  flagship step 1: loss {losses[0]:.6f}, unsharded "
+                  f"{loss_ref.item():.6f} (relative {rel:.2e})")
+            if not rel <= 1e-5:
+                raise AssertionError("flagship step 1 loss differs from the "
+                                     "unsharded step")
+            for (k, t), g in zip(leaves.items(), grads):
+                close(f"flagship step 1 {k} vs unsharded step", p[k],
+                      (t - lr * g).detach(), "float32", (1e-4, 1e-5))
+    print(f"  flagship losses: {losses}")
+    if not (np.isfinite(losses).all() and (np.diff(losses) < 0).all()):
+        raise AssertionError(f"flagship loss not finite and decreasing: "
+                             f"{losses}")
+
+    # ---- timing -------------------------------------------------------------
+    es = 4
+    times = {}
+    for S, plan in ((1, plan1), (4, plan4)):
+        pd = plan.maps(dev)
+        for s in range(S):
+            rps = plan.rows_per_shard
+            lo, hi = int(plan.bounds[s]), int(plan.bounds[s + 1])
+            sp = plan.slab_plan(s)
+            csr = torch.sparse_csr_tensor(
+                torch.from_numpy(sp.indptr).to(dev),
+                torch.from_numpy(sp.cols).to(dev), R.values[lo:hi],
+                (rps, m))
+            args = (pd["indptr"], pd["cols"], R.values, B, s * rps, rps)
+            b_ms, b_by = slab_bound(plan, s, B.shape[1], es)
+            times[f"S{S}_slab{s}"] = {
+                "entries": hi - lo,
+                "ms": time_ms(lambda: cs.chunk_spmm_slab(*args)),
+                "plain_ms": time_ms(lambda: cs.chunk_spmm_slab_plain(*args)),
+                "library_ms": time_ms(lambda: torch.sparse.mm(csr, B)),
+                "bound_ms": b_ms, "bound_by": b_by}
+    print(json.dumps({"k13_slabs": times, "card": card}))
+
+    steps = {
+        "unsharded_random_fwd_bwd_ms": chained_step(
+            lambda v, b: sparse_mm(R.with_data(v), b), R.values, B, G),
+        "sharded_chunk_fwd_bwd_ms": chained_step(
+            lambda v, b: sharded_chunk_spmm(plan1, v, b), R.values, B, G),
+        "sharded_chunk_4_bodies_fwd_bwd_ms": chained_step(
+            lambda v, b: torch.cat([slab_spmm(plan4, r, v, b)
+                                    for r in range(4)])[:n], R.values, B, G),
+        "unsharded_stencil_fwd_bwd_ms": chained_step(
+            lambda v, b: sparse_mm(A.with_data(v), b), A.values, B, G),
+        "sharded_dia_fwd_bwd_ms": chained_step(
+            lambda v, b: f(v, b), A.values, B, G),
+    }
+    state = {"p": params}
+
+    def train_step():
+        state["p"], _ = step(state["p"], x)
+
+    def unsharded_step():
+        leaves = {k: t.detach().requires_grad_(True)
+                  for k, t in state["p"].items()}
+        grads = torch.autograd.grad(loss_fn(leaves, x, enc),
+                                    list(leaves.values()))
+        state["p"] = {k: (t - lr * g).detach()
+                      for (k, t), g in zip(leaves.items(), grads)}
+
+    res = {k: time_ms(fn, reps=20) for k, fn in steps.items()}
+    res["flagship_train_step_ms"] = time_ms(train_step, reps=10)
+    res["flagship_unsharded_step_ms"] = time_ms(unsharded_step, reps=10)
+    res["flagship_losses"] = losses
+    print(json.dumps({"parallel_steps": res, "card": card}))
+    profile_step("sharded_chunk_fwd_bwd_step",
+                 steps["sharded_chunk_fwd_bwd_ms"])
+    profile_step("flagship_train_step", train_step, steps=3)
+
+    whole = times["S1_slab0"]
+    return {"name": "chunk_spmm_slab", "route": "cuda",
+            "source": "torchsparsegradutils_tpu_torch/csrc/chunk_spmm.cu",
+            "replaces": "torchsparsegradutils_tpu/parallel/chunk_sharded.py"
+                        ":146 (K13 _sharded_chunk_fwd)",
+            "launches": launches["chunk_spmm_slab"], "max_abs_err": err,
+            "ms": whole["ms"], "plain_ms": whole["plain_ms"],
+            "bound_ms": whole["bound_ms"], "bound_by": whole["bound_by"],
+            "library_ms": whole["library_ms"],
+            "slabs_of_4": [times[f"S4_slab{s}"] for s in range(4)]}
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -806,6 +1141,10 @@ def main() -> int:
         dia.SPMM_BWD = "split"
     del split, got
 
+    print(f"phase 3d: parallel/ on a one-rank NCCL group "
+          f"({time.perf_counter() - t0:.1f} s in)")
+    k13_row = phase_parallel(R, A, B, G, gen, dev, card)
+
     # ---- phase 4: timing ---------------------------------------------------
     print(f"phase 4: timing ({time.perf_counter() - t0:.1f} s in)")
     eps = 1e-6
@@ -819,16 +1158,8 @@ def main() -> int:
         return step
 
     def chain_step(A, B, G):
-        state = {"v": A.values.detach().clone(), "b": B.clone()}
-
-        def step():
-            v = state["v"].requires_grad_(True)
-            b = state["b"].requires_grad_(True)
-            out = sparse_mm(A.with_data(v), b)
-            gv, gb = torch.autograd.grad(out, (v, b), G)
-            state["v"] = (v + eps * gv).detach()
-            state["b"] = (b + eps * gb).detach()
-        return step
+        return chained_step(lambda v, b: sparse_mm(A.with_data(v), b),
+                            A.values, B, G, eps)
 
     torch.cuda.reset_peak_memory_stats()
     base_mib = torch.cuda.memory_allocated() / 2**20
@@ -1103,6 +1434,7 @@ def main() -> int:
                                    "same row reduction over the stored "
                                    "entries, as include_zeros=False")
         rows.append(row)
+    rows.append(k13_row)
     print(f"card: {card}")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

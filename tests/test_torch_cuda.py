@@ -492,3 +492,75 @@ def test_wrappers_raise_on_cuda_when_the_build_is_missing(dev, monkeypatch,
                 call()
     finally:
         _build.libraries.cache_clear()
+
+
+# --------------------------------------------------------------------------
+# K13 (the row-slab SpMM) and the sharded chunk SpMM on a one-rank group
+# --------------------------------------------------------------------------
+
+def _slab_plan():
+    """The awkward (700, 6000) pattern with rows 600 and up emptied: at 9
+    shards (78 rows each) the last slab is empty and runs past n."""
+    plan = _awkward_chunk_plan()
+    keep = int(plan.indptr[600])
+    rows = np.repeat(np.arange(plan.n), np.diff(plan.indptr))[:keep]
+    return build_chunk_plan(StaticArray(rows), StaticArray(plan.cols[:keep]),
+                            plan.n, plan.m)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_slab_kernel_matches_plain_and_repeats_bitwise(dev, dtype):
+    from torchsparsegradutils_tpu_torch.kernels.chunk_spmm import (
+        chunk_spmm_slab, chunk_spmm_slab_plain)
+    plan = _slab_plan()
+    g = torch.Generator().manual_seed(13)
+    vals = torch.randn(plan.nnz, generator=g).to(dev, dtype)
+    B = torch.randn(plan.m, 3, generator=g).to(dev, dtype)
+    d = plan.maps(dev)
+    whole = chunk_spmm_plain(d["indptr"], d["cols"], vals, B)
+    for row0, rps in [(78 * s, 78) for s in range(9)] + [(0, 700),
+                                                        (702, 8), (0, 1)]:
+        args = (d["indptr"], d["cols"], vals, B, row0, rps)
+        before = chunk_spmm_slab.launches
+        got, again = chunk_spmm_slab(*args), chunk_spmm_slab(*args)
+        torch.cuda.synchronize()
+        assert chunk_spmm_slab.launches == before + 2
+        assert got.shape == (rps, 3) and torch.equal(got, again)
+        close(got, chunk_spmm_slab_plain(*args), dtype)
+        inside = max(0, min(rps, plan.n - row0))
+        if inside:
+            close(got[:inside], whole[row0:row0 + inside], dtype)
+        assert not got[inside:].any()
+
+
+def test_sharded_chunk_spmm_on_one_nccl_rank(dev, tmp_path):
+    import torch.distributed as dist
+    from torchsparsegradutils_tpu_torch.kernels.chunk_spmm import (
+        chunk_spmm_slab)
+    from torchsparsegradutils_tpu_torch.parallel import (
+        build_sharded_chunk_plan, sharded_chunk_spmm)
+    torch.cuda.set_device(torch.cuda.current_device())   # NCCL's card
+    dist.init_process_group("nccl", store=dist.FileStore(
+        str(tmp_path / "store"), 1), rank=0, world_size=1)
+    try:
+        A = rand_sparse((900, 700), 20_000, layout="csr",
+                        generator=torch.Generator().manual_seed(5),
+                        device=dev)
+        B = torch.randn(700, 33, device=dev)
+        G = torch.randn(900, 33, device=dev)
+        plan = build_sharded_chunk_plan(A, 1)
+        v, b = (A.values.clone().requires_grad_(True),
+                B.clone().requires_grad_(True))
+        before = chunk_spmm_slab.launches
+        out = sharded_chunk_spmm(plan, v, b)
+        gv, gb = torch.autograd.grad(out, (v, b), G)
+        torch.cuda.synchronize()
+        assert chunk_spmm_slab.launches == before + 1
+        v2, b2 = (A.values.clone().requires_grad_(True),
+                  B.clone().requires_grad_(True))
+        ref = sparse_mm(A.with_data(v2), b2)
+        rv, rb = torch.autograd.grad(ref, (v2, b2), G)
+        for got, r in ((out, ref), (gv, rv), (gb, rb)):
+            close(got, r, torch.float32)
+    finally:
+        dist.destroy_process_group()

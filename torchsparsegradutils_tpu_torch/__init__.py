@@ -7,15 +7,18 @@ engine for general row-sorted patterns and a hybrid pattern's residual;
 ``sparse_triangular_solve`` (banded, level-scheduled, blocked and
 dense algorithms) with the same kind of backward; and
 ``sparse_logsumexp`` / ``sparse_bidir_logsumexp`` (DIA grid, row-ELL
-grid and chunk routes).  The SpMM, SDDMM, SpMV, value relayout, banded
-triangular solve, row LSE and its backward, and the fused chunk
-backward run as hand-written CUDA kernels (``csrc/``) on the card and as
-their plain PyTorch versions on the CPU.  The JAX package beside it is
+grid and chunk routes).  The subpackages ``parallel`` (row-sharded,
+chunk-sharded and halo-exchange SpMM and the dp × tp flagship train step
+on ``torch.distributed``) and ``models`` (``PairwiseEncoder``) build on
+them.  The SpMM, SDDMM, SpMV, value relayout, banded triangular solve,
+row LSE and its backward, the fused chunk backward and the row-slab SpMM
+run as hand-written CUDA kernels (``csrc/``) on the card and as their
+plain PyTorch versions on the CPU.  The JAX package beside it is
 the reference this port is tested against; the port imports none of
 it.
 """
 
-from .convert import from_arrays, to_arrays
+from .convert import from_arrays, params_from_arrays, to_arrays
 from .kernels.dia import dia_coverage
 from .ops.logsumexp import sparse_bidir_logsumexp, sparse_logsumexp
 from .ops.spmm import sddmm, sparse_mm
@@ -25,4 +28,4 @@ from .types import SparseCOO, SparseCSC, SparseCSR
 __all__ = ["SparseCOO", "SparseCSR", "SparseCSC", "sparse_mm", "sddmm",
            "sparse_triangular_solve", "sparse_logsumexp",
            "sparse_bidir_logsumexp", "dia_coverage", "from_arrays",
-           "to_arrays"]
+           "to_arrays", "params_from_arrays"]

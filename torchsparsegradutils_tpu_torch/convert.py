@@ -3,7 +3,9 @@
 ``from_arrays`` builds a container from numpy (or anything numpy can
 read): a matrix exported from the JAX package with ``np.asarray`` on its
 index and value arrays comes across unchanged, so both packages compute
-on the same matrix.  ``to_arrays`` goes back.
+on the same matrix.  ``to_arrays`` goes back.  ``params_from_arrays``
+carries the flagship train parameters (``parallel/training.py``) the
+same way.
 
 Example:
     >>> import numpy as np
@@ -22,7 +24,16 @@ import torch
 
 from .types import SparseCOO, SparseCSC, SparseCSR
 
-__all__ = ["from_arrays", "to_arrays"]
+__all__ = ["from_arrays", "to_arrays", "params_from_arrays"]
+
+
+def _tensor(arr) -> torch.Tensor:
+    """A tensor of an array's values: float32, float64 and bfloat16 (as
+    ``ml_dtypes`` arrays from JAX) keep their dtype."""
+    arr = np.asarray(arr)
+    if arr.dtype.name == "bfloat16":
+        return torch.from_numpy(arr.astype(np.float32)).to(torch.bfloat16)
+    return torch.from_numpy(np.array(arr))
 
 
 def from_arrays(layout: str, idx0, idx1, data, shape, *, device="cuda"):
@@ -38,11 +49,7 @@ def from_arrays(layout: str, idx0, idx1, data, shape, *, device="cuda"):
       device: where the values go.
     """
     if not isinstance(data, torch.Tensor):
-        arr = np.asarray(data)
-        if arr.dtype.name == "bfloat16":   # ml_dtypes arrays from JAX
-            data = torch.from_numpy(arr.astype(np.float32)).to(torch.bfloat16)
-        else:
-            data = torch.from_numpy(np.array(arr))
+        data = _tensor(data)
     data = data.to(device)
     idx0, idx1 = np.asarray(idx0), np.asarray(idx1)
     if layout == "coo":
@@ -72,3 +79,13 @@ def to_arrays(A):
         return "csc", A.indptr.arr, A.indices.arr, data, A.shape
     raise TypeError(f"to_arrays: expected SparseCOO, SparseCSR or "
                     f"SparseCSC, got {type(A).__name__}")
+
+
+def params_from_arrays(params, *, device="cuda") -> dict:
+    """The flagship train parameters (``{"values", "log_diag", "loc"}``,
+    e.g. the JAX package's ``init_params`` output through ``np.asarray``)
+    as tensors on ``device``, dtypes kept."""
+    missing = {"values", "log_diag", "loc"} - set(params)
+    if missing:
+        raise ValueError(f"params_from_arrays: missing {sorted(missing)}")
+    return {k: _tensor(v).to(device) for k, v in params.items()}

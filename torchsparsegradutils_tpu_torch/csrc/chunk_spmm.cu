@@ -27,6 +27,16 @@
 // each entry costs one random 512-byte row read.  Design: a warp reads a
 // whole B row tile per entry (full 128-byte lines), and keeps UNROLL
 // entries' rows in flight at once to hide the latency of those reads.
+//
+// K13 (tsgu_chunk_spmm_slab_*) replaces the chunk SpMM that each device
+// runs on its own row slab under shard_map (pallas_call at
+// torchsparsegradutils_tpu/parallel/chunk_sharded.py:146): the rows
+// [row0, row0 + rps) of the same product, into a (rps, p) slab whose rows
+// at or past n are 0.  It reads the global indptr, cols and vals in
+// place: the rows are sorted, so a slab's entries are contiguous, and the
+// TPU path's per-shard value relayout (take(data_ext, entry_sel)) and its
+// segment_sum combine have no counterpart.  Its own symbol keeps it apart
+// from K6 in a profile; the row loop is the one K6 runs.
 #include "tsgu_common.cuh"
 
 namespace {
@@ -34,19 +44,14 @@ namespace {
 constexpr int WARPS = 8;   // output rows per block
 constexpr int UNROLL = 4;  // entries whose B rows are loaded together
 
+// Accumulates entries [beg, end) of one row into the lane's four columns
+// of the tile that starts at t0: the loop K6 and K13 share.
 template <typename T, bool VEC>
-__global__ void __launch_bounds__(WARPS * 32)
-chunk_spmm_kernel(const int64_t* __restrict__ indptr,
-                  const int64_t* __restrict__ cols,
-                  const T* __restrict__ vals, const T* __restrict__ B,
-                  T* __restrict__ out, int64_t n, int64_t p) {
+__device__ __forceinline__ void row_sum(
+    const int64_t* __restrict__ cols, const T* __restrict__ vals,
+    const T* __restrict__ B, int64_t beg, int64_t end, int64_t t0, int lane,
+    int64_t p, typename tsgu::Acc<T>::type (&acc)[4]) {
   using A = typename tsgu::Acc<T>::type;
-  const int lane = threadIdx.x & 31;
-  const int64_t r = (int64_t)blockIdx.x * WARPS + (threadIdx.x >> 5);
-  if (r >= n) return;  // the whole warp leaves together
-  const int64_t t0 = (int64_t)blockIdx.y * tsgu::TILE;
-  const int64_t beg = indptr[r], end = indptr[r + 1];
-  A acc[4] = {A(0), A(0), A(0), A(0)};
   for (int64_t e0 = beg; e0 < end; e0 += UNROLL) {
     A v[UNROLL];
     A b[UNROLL][4];
@@ -67,7 +72,45 @@ chunk_spmm_kernel(const int64_t* __restrict__ indptr,
       }
     }
   }
+}
+
+template <typename T, bool VEC>
+__global__ void __launch_bounds__(WARPS * 32)
+chunk_spmm_kernel(const int64_t* __restrict__ indptr,
+                  const int64_t* __restrict__ cols,
+                  const T* __restrict__ vals, const T* __restrict__ B,
+                  T* __restrict__ out, int64_t n, int64_t p) {
+  using A = typename tsgu::Acc<T>::type;
+  const int lane = threadIdx.x & 31;
+  const int64_t r = (int64_t)blockIdx.x * WARPS + (threadIdx.x >> 5);
+  if (r >= n) return;  // the whole warp leaves together
+  const int64_t t0 = (int64_t)blockIdx.y * tsgu::TILE;
+  A acc[4] = {A(0), A(0), A(0), A(0)};
+  row_sum<T, VEC>(cols, vals, B, indptr[r], indptr[r + 1], t0, lane, p, acc);
   tsgu::store_tile<VEC>(out + r * p, t0, lane, p, acc);
+}
+
+// K13: the rows [row0, row0 + rps) of the same product, written to a
+// (rps, p) slab; slab rows at or past n (the last shard's padding) are 0.
+template <typename T, bool VEC>
+__global__ void __launch_bounds__(WARPS * 32)
+chunk_spmm_slab_kernel(const int64_t* __restrict__ indptr,
+                       const int64_t* __restrict__ cols,
+                       const T* __restrict__ vals, const T* __restrict__ B,
+                       T* __restrict__ out, int64_t n, int64_t row0,
+                       int64_t rps, int64_t p) {
+  using A = typename tsgu::Acc<T>::type;
+  const int lane = threadIdx.x & 31;
+  const int64_t l = (int64_t)blockIdx.x * WARPS + (threadIdx.x >> 5);
+  if (l >= rps) return;
+  const int64_t r = row0 + l;
+  const int64_t t0 = (int64_t)blockIdx.y * tsgu::TILE;
+  A acc[4] = {A(0), A(0), A(0), A(0)};
+  if (r < n) {
+    row_sum<T, VEC>(cols, vals, B, indptr[r], indptr[r + 1], t0, lane, p,
+                    acc);
+  }
+  tsgu::store_tile<VEC>(out + l * p, t0, lane, p, acc);
 }
 
 template <typename T>
@@ -82,6 +125,22 @@ int launch(const void* indptr, const void* cols, const void* vals,
   kernel<<<blocks, WARPS * 32, 0, (cudaStream_t)stream>>>(
       (const int64_t*)indptr, (const int64_t*)cols, (const T*)vals,
       (const T*)B, (T*)out, n, p);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_slab(const void* indptr, const void* cols, const void* vals,
+                const void* B, void* out, int64_t n, int64_t row0,
+                int64_t rps, int64_t p, void* stream) {
+  const dim3 blocks((unsigned)((rps + WARPS - 1) / WARPS),
+                    (unsigned)((p + tsgu::TILE - 1) / tsgu::TILE));
+  void (*kernel)(const int64_t*, const int64_t*, const T*, const T*, T*,
+                 int64_t, int64_t, int64_t, int64_t) =
+      tsgu::vec_ok(p, B, out) ? &chunk_spmm_slab_kernel<T, true>
+                              : &chunk_spmm_slab_kernel<T, false>;
+  kernel<<<blocks, WARPS * 32, 0, (cudaStream_t)stream>>>(
+      (const int64_t*)indptr, (const int64_t*)cols, (const T*)vals,
+      (const T*)B, (T*)out, n, row0, rps, p);
   return (int)cudaGetLastError();
 }
 
@@ -105,6 +164,27 @@ int tsgu_chunk_spmm_f64(const void* indptr, const void* cols,
                         const void* vals, const void* B, void* out,
                         int64_t n, int64_t p, void* stream) {
   return launch<double>(indptr, cols, vals, B, out, n, p, stream);
+}
+
+int tsgu_chunk_spmm_slab_f32(const void* indptr, const void* cols,
+    const void* vals, const void* B, void* out, int64_t n, int64_t row0,
+    int64_t rps, int64_t p, void* stream) {
+  return launch_slab<float>(indptr, cols, vals, B, out, n, row0, rps, p,
+      stream);
+}
+
+int tsgu_chunk_spmm_slab_bf16(const void* indptr, const void* cols,
+    const void* vals, const void* B, void* out, int64_t n, int64_t row0,
+    int64_t rps, int64_t p, void* stream) {
+  return launch_slab<__nv_bfloat16>(indptr, cols, vals, B, out, n, row0,
+      rps, p, stream);
+}
+
+int tsgu_chunk_spmm_slab_f64(const void* indptr, const void* cols,
+    const void* vals, const void* B, void* out, int64_t n, int64_t row0,
+    int64_t rps, int64_t p, void* stream) {
+  return launch_slab<double>(indptr, cols, vals, B, out, n, row0, rps, p,
+      stream);
 }
 
 }  // extern "C"

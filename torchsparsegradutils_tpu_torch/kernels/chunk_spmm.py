@@ -20,8 +20,11 @@ network.
 Three hand-written CUDA kernels carry the engine, each beside its plain
 PyTorch version: :func:`chunk_spmm` (``csrc/chunk_spmm.cu``),
 :func:`chunk_sddmm` (``csrc/chunk_sddmm.cu``) and :func:`chunk_spmv`
-(``csrc/chunk_spmv.cu``).  On CPU tensors the wrappers run the plain
-versions; on CUDA tensors they launch the kernels or raise.
+(``csrc/chunk_spmv.cu``).  :func:`chunk_spmm_slab` (K13, a separate
+entry of ``csrc/chunk_spmm.cu``) computes one row slab of the SpMM for
+the sharded path (``parallel/chunk_sharded.py``).  On CPU tensors the
+wrappers run the plain versions; on CUDA tensors they launch the
+kernels or raise.
 :class:`ChunkSpmm` and :class:`ChunkSddmm` make them differentiable,
 each backward calling the Functions again, so higher derivatives work.
 
@@ -50,7 +53,8 @@ from . import _build
 from .window_gather import WindowGather
 
 __all__ = ["ChunkPlan", "build_chunk_plan", "build_chunk_plan_transpose",
-           "transpose_order", "chunk_spmm", "chunk_sddmm", "chunk_spmv",
+           "transpose_order", "chunk_spmm", "chunk_spmm_slab", "chunk_sddmm",
+           "chunk_spmv",
            "chunk_bwd_pass1", "chunk_bwd_pass2", "chunk_bwd_fused",
            "ChunkSpmm", "ChunkSddmm", "ChunkBwdPair"]
 
@@ -242,6 +246,54 @@ def chunk_spmm(indptr: torch.Tensor, cols: torch.Tensor,
 
 
 chunk_spmm.launches = 0
+
+
+def chunk_spmm_slab_plain(indptr, cols, values, B, row0: int, rps: int):
+    """Plain PyTorch version of :func:`chunk_spmm_slab`."""
+    n = indptr.shape[0] - 1
+    r0, r1 = min(row0, n), min(row0 + rps, n)
+    ip = indptr[r0:r1 + 1]
+    lo, hi = int(ip[0]), int(ip[-1])
+    out = chunk_spmm_plain(ip - lo, cols[lo:hi], values[lo:hi], B)
+    return torch.cat([out, out.new_zeros((rps - (r1 - r0), B.shape[1]))])
+
+
+def chunk_spmm_slab(indptr: torch.Tensor, cols: torch.Tensor,
+                    values: torch.Tensor, B: torch.Tensor, row0: int,
+                    rps: int) -> torch.Tensor:
+    """Rows ``[row0, row0 + rps)`` of :func:`chunk_spmm`'s product, as a
+    ``(rps, p)`` slab whose rows at or past n are 0 (K13, one shard's
+    SpMM): the global int64 indptr (n+1,) and cols (nnz,) and values
+    (nnz,) are read in place.
+
+    CPU tensors take :func:`chunk_spmm_slab_plain`; CUDA tensors launch
+    ``csrc/chunk_spmm.cu``'s slab entry and raise on what it does not
+    take.
+    """
+    if all(t.device.type == "cpu" for t in (indptr, cols, values, B)):
+        return chunk_spmm_slab_plain(indptr, cols, values, B, row0, rps)
+    suffix = _build.cuda_operands("chunk_spmm_slab", (values, B),
+                                  (indptr, cols))
+    if indptr.ndim != 1 or values.shape != cols.shape or cols.ndim != 1 \
+            or B.ndim != 2:
+        raise _shapes("chunk_spmm_slab", indptr, cols, values, B)
+    n, p = indptr.shape[0] - 1, B.shape[1]
+    if row0 < 0 or rps < 0:
+        raise ValueError(f"chunk_spmm_slab: needs row0 >= 0 and rps >= 0, "
+                         f"got {row0}, {rps}")
+    if p > TILE * MAX_COL_BLOCKS:
+        raise ValueError(f"chunk_spmm_slab: takes p <= "
+                         f"{TILE * MAX_COL_BLOCKS}, got {p}")
+    out = torch.empty((rps, p), dtype=B.dtype, device=B.device)
+    if out.numel() == 0:
+        return out
+    _build.launch("chunk_spmm", f"tsgu_chunk_spmm_slab_{suffix}", indptr,
+                  cols, values, B, out, n, row0, rps, p)
+    chunk_spmm_slab.launches += 1
+    return out
+
+
+chunk_spmm_slab.launches = 0
 
 
 def chunk_sddmm_plain(indptr, cols, X, Y):
