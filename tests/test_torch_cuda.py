@@ -42,10 +42,19 @@ pytestmark = pytest.mark.cuda
 TOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (2e-2, 1e-5),
        torch.float64: (1e-12, 1e-12)}
 DTYPES = list(TOL)
-SHAPES = [(1000, 1000, 1, [-3, 0, 3]),
-          (777, 1200, 33, [-500, -1, 0, 7, 900]),
-          (1300, 600, 130, [-1000, -5, 0, 2, 599]),
-          (2000, 2000, 5, list(range(-128, 128)))]       # K = 256
+# (n, m, p, offsets, lead): ``lead`` > 0 passes B as a contiguous view
+# that many elements into its storage, so its data pointer is not 16-byte
+# aligned and K1 takes its scalar tiles
+SHAPES = [(1000, 1000, 1, [-3, 0, 3], 0),
+          (777, 1200, 33, [-500, -1, 0, 7, 900], 0),
+          (1300, 600, 130, [-1000, -5, 0, 2, 599], 0),
+          (2000, 2000, 5, list(range(-128, 128)), 0),     # K = 256
+          # windows crossing the 128- and 256-row tile edges, n % 128 != 0
+          (1000, 1000, 128, [-130, -129, -2, 0, 1, 127, 129], 0),
+          (1000, 900, 16, [-300, -257, -255, 0, 255, 257], 0),
+          (900, 1100, 130, [-64, -3, -2, -1, 0, 1, 2, 3, 64], 0),
+          (640, 700, 64, [-40, -1, 0, 1, 40], 1),           # unaligned B
+          (500, 500, 8, [-3000, -1, 0, 1, 2900], 0)]        # windows of holes
 
 
 @pytest.fixture
@@ -63,14 +72,16 @@ def close(got, ref, dtype):
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("n,m,p,offsets", SHAPES)
-def test_dia_kernels_match_plain(dev, dtype, n, m, p, offsets):
+@pytest.mark.parametrize("n,m,p,offsets,lead", SHAPES)
+def test_dia_kernels_match_plain(dev, dtype, n, m, p, offsets, lead):
     g = torch.Generator().manual_seed(n + p)
     K = len(offsets)
     offs = torch.tensor(offsets, device=dev)
     # values in the out-of-range cells too: both versions must skip them
     grid = torch.randn(n, K, generator=g).to(dev, dtype)
-    B = torch.randn(m, p, generator=g).to(dev, dtype)
+    B = torch.randn(lead + m * p, generator=g).to(dev, dtype)[lead:].view(
+        m, p)
+    assert B.is_contiguous() and (lead == 0 or B.data_ptr() % 16 != 0)
     X = torch.randn(n, p, generator=g).to(dev, dtype)
     before = spmm_core.launches, sddmm_core.launches
     close(spmm_core(offs, grid, B), spmm_core_plain(offs, grid, B), dtype)
@@ -78,6 +89,24 @@ def test_dia_kernels_match_plain(dev, dtype, n, m, p, offsets):
     torch.cuda.synchronize()
     assert (spmm_core.launches, sddmm_core.launches) == (before[0] + 1,
                                                          before[1] + 1)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_dia_spmm_repeats_bitwise_at_the_cfd2_stencil(dev, dtype):
+    # bench.py's 25-offset stencil at N = 123,440, p = 128: three windows
+    offsets = sorted({0, 1, -1, 2, -2, 3, -3, 49, -49, 50, -50, 51, -51,
+                      2401, -2401, 2449, -2449, 2450, -2450, 2451, -2451,
+                      2499, -2499, 2500, -2500})
+    n = 123_440
+    geo = dia.DiaGeometry(np.array(offsets), n, n)
+    g = torch.Generator().manual_seed(7)
+    grid = torch.randn(n, len(offsets), generator=g).to(dev, dtype)
+    B = torch.randn(n, 128, generator=g).to(dev, dtype)
+    offs = geo.offsets_on(dev)
+    got = spmm_core(offs, grid, B, geo)
+    assert torch.equal(got, spmm_core(offs, grid, B, geo))
+    assert torch.equal(got, spmm_core(offs, grid, B))   # table from offs
+    close(got, spmm_core_plain(offs, grid, B), dtype)
 
 
 @pytest.mark.parametrize("dtype", DTYPES)

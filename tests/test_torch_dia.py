@@ -162,6 +162,98 @@ def test_core_functions_gradcheck(shape, offsets):
     assert geo.T.T is geo
 
 
+CFD2_OFFSETS = sorted({0, 1, -1, 2, -2, 3, -3, 49, -49, 50, -50, 51, -51,
+                       2401, -2401, 2449, -2449, 2450, -2450, 2451, -2451,
+                       2499, -2499, 2500, -2500})      # bench.py:44-46
+
+
+def _window_covers(offsets, rows, cap, count):
+    # every k once, in ascending order; off_lo/off_hi its window's ends
+    t = dia.window_table(offsets, rows, cap, count)
+    ks = np.concatenate([np.arange(k, k + c) for k, c, _, _ in t])
+    np.testing.assert_array_equal(ks, np.arange(len(offsets)))
+    offs = np.asarray(offsets)
+    np.testing.assert_array_equal(t[:, 2], offs[t[:, 0]])
+    np.testing.assert_array_equal(t[:, 3], offs[t[:, 0] + t[:, 1] - 1])
+
+
+def _window_cap(offsets, rows, cap, count):
+    t = dia.window_table(offsets, rows, cap, count)
+    assert ((t[:, 3] - t[:, 2]) <= cap).all() and (t[:, 1] <= count).all()
+    assert len(t) > 1                                   # the caps split
+
+
+def _window_cfd2(offsets, rows, cap, count):
+    t = dia.DiaGeometry(np.array(offsets), 1000, 1000).windows(rows, cap,
+                                                                count)
+    np.testing.assert_array_equal(t, [[0, 6, -2500, -2401],
+                                      [6, 13, -51, 51],
+                                      [19, 6, 2401, 2500]])
+
+
+def _window_isolated(offsets, rows, cap, count):
+    t = dia.window_table(offsets, rows, cap, count)
+    np.testing.assert_array_equal(t[:, 1], np.ones(len(offsets)))
+
+
+def _window_mirror(offsets, rows, cap, count):
+    geo = dia.DiaGeometry(np.array(offsets), 700, 900)
+    t, tt = geo.windows(rows, cap, count), geo.T.windows(rows, cap, count)
+    K = len(offsets)
+    np.testing.assert_array_equal(
+        tt[::-1], np.stack([K - t[:, 0] - t[:, 1], t[:, 1], -t[:, 3],
+                            -t[:, 2]], 1))
+
+
+def _window_runs(offsets, rows, cap, count):
+    # the kernel's plan: the table, each window's first run, and runs of
+    # consecutive offsets (k - k_first, off_k - off_lo, length) that
+    # cover the window's offsets in order
+    geo = dia.DiaGeometry(np.array(offsets), 500, 500)
+    t = geo.windows(rows, cap, count)
+    plan, W, NR, span, most = geo.windows_on(torch.device("cpu"), rows, cap,
+                                             count)
+    assert plan.dtype == torch.int64 and W == len(t)
+    assert (span, most) == ((t[:, 3] - t[:, 2]).max(), t[:, 1].max())
+    plan = plan.numpy()
+    np.testing.assert_array_equal(plan[:4 * W].reshape(W, 4), t)
+    first, runs = plan[4 * W:5 * W + 1], plan[5 * W + 1:].reshape(NR, 3)
+    offs = np.asarray(offsets)
+    for w, (kf, cnt, lo, _) in enumerate(t):
+        got = [lo + d + i for kk, d, L in runs[first[w]:first[w + 1]]
+               for i in range(L)]
+        np.testing.assert_array_equal(got, offs[kf:kf + cnt])
+        assert all(np.diff(offs[kf + kk:kf + kk + L]).tolist() == [1] * (L - 1)
+                   for kk, _, L in runs[first[w]:first[w + 1]])
+
+
+@pytest.mark.parametrize("check,offsets,rows,cap,count", [
+    (_window_covers, CFD2_OFFSETS, 64, 128, 32),
+    (_window_covers, list(range(-128, 128)), 128, 192, 31),
+    (_window_covers, [-900, -7, -6, 0, 30, 31, 400], 32, 40, 2),
+    (_window_cap, list(range(-128, 128)), 128, 100, 32),
+    (_window_cap, list(range(0, 400, 3)), 64, 200, 16),
+    (_window_cfd2, CFD2_OFFSETS, 64, 128, 32),
+    (_window_cfd2, CFD2_OFFSETS, 128, 192, 31),
+    (_window_isolated, [-5000, -1000, 0, 700, 3000], 128, 192, 31),
+    (_window_isolated, [-3, 0, 3], 2, 192, 31),
+    (_window_mirror, CFD2_OFFSETS, 64, 128, 32),
+    (_window_mirror, [-400, -60, -1, 0, 2, 90, 300], 128, 192, 31),
+    (_window_runs, CFD2_OFFSETS, 128, 192, 31),
+    (_window_runs, [-40, -39, -38, -1, 0, 1, 2, 30, 60, 61], 16, 200, 4),
+], ids=["covers-cfd2", "covers-run256", "covers-small", "cap-span",
+        "cap-count", "cfd2-64rows", "cfd2-128rows", "isolated",
+        "isolated-narrow-tile", "mirror-cfd2", "mirror-uneven", "runs-cfd2",
+        "runs-split"])
+def test_window_table(check, offsets, rows, cap, count):
+    """K1's window table: each k once and in order, within the cap, the
+    cfd2 stencil in three windows of 6, 13 and 6 offsets, isolated
+    offsets one window each, the transpose's table the mirror of the
+    forward's (where no cap splits a window), and the runs the kernel
+    reads."""
+    check(offsets, rows, cap, count)
+
+
 def test_cores_match_dense():
     n, m, p = 40, 31, 5
     offs = np.array([-9, -1, 0, 3, 30])

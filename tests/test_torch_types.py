@@ -212,6 +212,16 @@ def test_wrappers_refuse_non_cpu_tensors_without_fallback():
         window_gather(torch.empty(3, device="meta"), offs)
 
 
+def test_default_device_is_the_card_without_cpu_fallback():
+    # the port's entry points run on the card unless the caller asks for
+    # the CPU: with no CUDA, a container built with no device raises
+    if torch.cuda.is_available():
+        pytest.skip("CUDA is present: the default device works")
+    with pytest.raises((AssertionError, RuntimeError), match="CUDA"):
+        SparseCOO(np.array([0]), np.array([0]), np.array([1.0], np.float32),
+                  (1, 1))
+
+
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):
     monkeypatch.setattr(_build, "BUILD_ROOT", tmp_path / "build")
     monkeypatch.setenv("PATH", str(tmp_path))

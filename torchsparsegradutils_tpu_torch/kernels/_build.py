@@ -140,25 +140,29 @@ def cuda_operands(name: str, floats, ints) -> str:
     return _SUFFIX[dtype]
 
 
+@functools.lru_cache(maxsize=None)
+def _entry(lib: ctypes.CDLL, entry: str, pointers: tuple):
+    """C entry ``entry`` of ``lib``, typed once for arguments that are
+    pointers (True) or int64 (False), then the stream."""
+    fn = getattr(lib, entry)
+    fn.argtypes = [ctypes.c_void_p if ptr else ctypes.c_int64
+                   for ptr in pointers] + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
 def launch(kernel: str, entry: str, *args) -> None:
     """Call C entry ``entry`` of ``kernel``'s library with ``args``
     (tensors pass their data pointer, ints pass as int64) on the current
     CUDA stream; raises if the launch reports a CUDA error."""
-    fn = getattr(libraries()[kernel], entry)
-    c_args, types = [], []
-    for a in args:
-        if isinstance(a, torch.Tensor):
-            c_args.append(ctypes.c_void_p(a.data_ptr()))
-            types.append(ctypes.c_void_p)
-        else:
-            c_args.append(ctypes.c_int64(int(a)))
-            types.append(ctypes.c_int64)
-    fn.argtypes = types + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    dev = next(a.device for a in args if isinstance(a, torch.Tensor))
+    pointers = tuple(isinstance(a, torch.Tensor) for a in args)
+    fn = _entry(libraries()[kernel], entry, pointers)
+    c_args = [a.data_ptr() if ptr else int(a)
+              for a, ptr in zip(args, pointers)]
+    dev = next(a.device for a, ptr in zip(args, pointers) if ptr)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = fn(*c_args, ctypes.c_void_p(stream))
+        rc = fn(*c_args, stream)
     if rc != 0:
         raise RuntimeError(f"{entry}: kernel launch failed with CUDA error "
                            f"{rc}")

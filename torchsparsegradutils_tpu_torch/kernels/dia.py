@@ -66,7 +66,15 @@ from .window_gather import WindowGather
 MAX_DIAGS = 256          # offsets above this: not DIA-structured
 DIA_MAX_EXPAND = 4.0     # grid cells (K*n) must be <= this x covered nnz
 HYBRID_MIN_COVER = 0.7   # diagonals must cover >= this nnz fraction
-MAX_COL_BLOCKS = 65535   # CUDA grid y limit: spmm_core takes p <= 32 x this
+# csrc/dia_spmm.cu's tile configurations, (VW, LANES, RG, RT) as its C
+# entries instantiate them: a block of LANES x RG threads owns R = RG x RT
+# rows and PT = LANES x VW columns; VW = 4 takes vectors of four elements
+# (p % 4 == 0, B aligned), VW = 1 single elements.
+SPMM_TILES = {"v32": (4, 8, 16, 8), "v16": (4, 4, 32, 8),
+              "s32": (1, 32, 8, 8), "s4": (1, 4, 32, 4), "s1": (1, 1, 256, 1)}
+WINDOW_B_BYTES = 40 * 1024   # shared memory of one stage's B window ...
+WINDOW_G_BYTES = 16 * 1024   # ... and of its grid columns: two stages fit
+WINDOW_MAX_COUNT = 32        # offsets of one window, at most
 
 
 class DiaGeometry:
@@ -103,6 +111,39 @@ class DiaGeometry:
                 self.offsets.copy()).to(device)
         return t
 
+    def windows(self, rows_per_tile: int, cap: int,
+                max_count: int = WINDOW_MAX_COUNT) -> np.ndarray:
+        """The offset windows of K1's tiles of ``rows_per_tile`` rows
+        (:func:`window_table`), cached per argument."""
+        key = ("windows", rows_per_tile, cap, max_count)
+        t = self._dev.get(key)
+        if t is None:
+            t = self._dev[key] = window_table(self.offsets, rows_per_tile,
+                                              cap, max_count)
+        return t
+
+    def windows_on(self, device, rows_per_tile: int, cap: int,
+                   max_count: int = WINDOW_MAX_COUNT) -> tuple:
+        """What K1 takes of :meth:`windows`, cached per device and
+        argument: ``(plan, W, runs, span_max, count_max)``, ``plan`` the
+        int64 :func:`window_plan` on ``device``, ``W`` its windows,
+        ``runs`` its runs, and the largest window span and count."""
+        key = ("windows", rows_per_tile, cap, max_count, device)
+        t = self._dev.get(key)
+        if t is None:
+            table = self.windows(rows_per_tile, cap, max_count)
+            if table.size and np.abs(table[:, 2:]).max() >= 2**30:
+                raise ValueError("dia spmm_core: takes offsets below 2**30 "
+                                 "in size")
+            plan = window_plan(self.offsets, table)
+            W = len(table)
+            t = self._dev[key] = (
+                torch.from_numpy(plan).to(device), W,
+                (len(plan) - 5 * W - 1) // 3,
+                int((table[:, 3] - table[:, 2]).max(initial=0)),
+                int(table[:, 1].max(initial=0)))
+        return t
+
     def shift(self, grid: torch.Tensor) -> torch.Tensor:
         """``(n, K)`` grid -> the transpose's ``(m, K)`` grid,
         ``gT[c, kT] = grid[c - off_k, k]`` with ``kT = K - 1 - k``
@@ -119,6 +160,51 @@ class DiaGeometry:
         cols = [gp[lo - int(off):lo - int(off) + self.m, k]
                 for k, off in reversed(list(enumerate(offs)))]
         return torch.stack(cols, dim=1)
+
+
+def window_table(offsets, rows_per_tile: int, cap: int,
+                 max_count: int = WINDOW_MAX_COUNT) -> np.ndarray:
+    """Group sorted ``offsets`` into the windows that K1 stages in shared
+    memory: ``(W, 4)`` int64 rows ``(k_first, count, off_lo, off_hi)``.
+
+    Greedy from the first offset: the next one joins the current window
+    when its gap to the previous offset is below ``rows_per_tile`` (the
+    tile's B rows then overlap), the window's span ``off_hi - off_lo``
+    stays within ``cap`` and it holds at most ``max_count`` offsets.
+    Offsets farther apart get a window each, which stages the same B rows
+    as reading them one offset at a time.
+    """
+    wins = []
+    for k, off in enumerate(int(o) for o in offsets):
+        if wins:
+            w = wins[-1]
+            if (off - w[3] < rows_per_tile and off - w[2] <= cap
+                    and w[1] < max_count):
+                w[1] += 1
+                w[3] = off
+                continue
+        wins.append([k, 1, off, off])
+    return np.array(wins, np.int64).reshape(-1, 4)
+
+
+def window_plan(offsets, table: np.ndarray) -> np.ndarray:
+    """What K1 reads of a window table, flat int64: the ``(W, 4)`` rows,
+    then ``W + 1`` run starts, then the runs of consecutive offsets in
+    each window as ``(k - k_first, off_k - off_lo, length)``, window by
+    window (window ``w``'s runs are ``first[w]`` to ``first[w + 1]``)."""
+    offs = np.asarray(offsets, np.int64)
+    first, runs = [0], []
+    for kf, cnt, lo, _ in table.tolist():
+        k = kf
+        while k < kf + cnt:
+            L = 1
+            while k + L < kf + cnt and offs[k + L] == offs[k + L - 1] + 1:
+                L += 1
+            runs.append((k - kf, offs[k] - lo, L))
+            k += L
+        first.append(len(runs))
+    return np.concatenate([table.reshape(-1), np.array(first, np.int64),
+                           np.array(runs, np.int64).reshape(-1)])
 
 
 @dataclass(frozen=True, eq=False)
@@ -335,13 +421,39 @@ def spmm_core_plain(offsets, grid: torch.Tensor, B: torch.Tensor):
     return out.to(grid.dtype)
 
 
+def spmm_tile(B: torch.Tensor):
+    """K1's tile configuration for B (m, p): ``(name, rows, cols, cap,
+    max_count)``, the window ``cap`` and ``max_count`` sized so that a
+    stage fits :data:`WINDOW_B_BYTES` and :data:`WINDOW_G_BYTES`."""
+    es, p = B.element_size(), B.shape[1]
+    if p % 4 == 0 and B.data_ptr() % min(16, 4 * es) == 0:
+        name = "v32" if p >= 32 and es <= 4 else "v16"
+    else:
+        name = "s1" if p == 1 else "s4" if p < 32 else "s32"
+    return _tile(name, es)
+
+
+@lru_cache(maxsize=None)
+def _tile(name: str, es: int):
+    vw, lanes, rg, rt = SPMM_TILES[name]
+    rows, cols = rg * rt, lanes * vw
+    cap = max(1, WINDOW_B_BYTES // (cols * es) - rows)
+    max_count = min(WINDOW_MAX_COUNT,
+                    max(1, WINDOW_G_BYTES // ((rows + 4) * es)))
+    return name, rows, cols, cap, max_count
+
+
 def spmm_core(offsets: torch.Tensor, grid: torch.Tensor,
-              B: torch.Tensor) -> torch.Tensor:
+              B: torch.Tensor, geo: DiaGeometry = None) -> torch.Tensor:
     """``out[r, :] = Σ_k grid[r, k] · B[r + off_k, :]``: grid (n, K),
     B (m, p), int64 sorted offsets (K,) -> (n, p).
 
     CPU tensors take :func:`spmm_core_plain`; CUDA tensors launch
-    ``csrc/dia_spmm.cu`` and raise on what it does not take.
+    ``csrc/dia_spmm.cu`` and raise on what it does not take.  The kernel
+    reads the offsets' windows (:func:`window_plan` of
+    :func:`window_table`, for the tile :func:`spmm_tile` picks) from
+    ``geo``, cached there (``geo.offsets`` must be ``offsets``), or from
+    the offsets, copied to the host, when ``geo`` is None.
     """
     if all(t.device.type == "cpu" for t in (offsets, grid, B)):
         return spmm_core_plain(offsets, grid, B)
@@ -351,14 +463,21 @@ def spmm_core(offsets: torch.Tensor, grid: torch.Tensor,
                          f"offsets (K,), got {tuple(grid.shape)}, "
                          f"{tuple(B.shape)}, {tuple(offsets.shape)}")
     (n, K), (m, p) = grid.shape, B.shape
-    if K > MAX_DIAGS or p > 32 * MAX_COL_BLOCKS:
-        raise ValueError(f"dia spmm_core: takes K <= {MAX_DIAGS} and p <= "
-                         f"{32 * MAX_COL_BLOCKS}, got K={K}, p={p}")
+    tile, rows, cols, cap, max_count = spmm_tile(B)
+    tiles = -(-n // rows) * -(-p // cols)
+    if K > MAX_DIAGS or tiles >= 2**31:
+        raise ValueError(f"dia spmm_core: takes K <= {MAX_DIAGS} and fewer "
+                         f"than 2**31 tiles of {rows} x {cols}, got K={K}, "
+                         f"{tiles} tiles")
     out = torch.empty((n, p), dtype=B.dtype, device=B.device)
     if out.numel() == 0:
         return out
-    _build.launch("dia_spmm", f"tsgu_dia_spmm_{suffix}", grid, B, offsets,
-                  out, n, m, K, p)
+    if geo is None:
+        geo = DiaGeometry(np.array(offsets.tolist(), np.int64), n, m)
+    wplan, W, NR, span_max, count_max = geo.windows_on(B.device, rows, cap,
+                                                       max_count)
+    _build.launch("dia_spmm", f"tsgu_dia_spmm_{suffix}_{tile}", grid, B,
+                  wplan, out, n, m, K, p, W, NR, span_max, count_max)
     spmm_core.launches += 1
     return out
 
@@ -419,7 +538,7 @@ class DiaSpmmCore(torch.autograd.Function):
         ctx.geo = geo
         ctx.save_for_backward(grid, B)
         return spmm_core(geo.offsets_on(grid.device), grid.contiguous(),
-                         B.contiguous())
+                         B.contiguous(), geo)
 
     @staticmethod
     def backward(ctx, G):
