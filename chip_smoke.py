@@ -21,7 +21,11 @@ last line:
    (isolated offsets, a run of 256, n != m both ways, p = 3 and 130,
    offsets beyond +-m, an unaligned B, the sharded-dia window), after
    printing its window tables for the stencil and its transpose
-   (``k1_windows``); the chunk kernels on a uniform random pattern of
+   (``k1_windows``); K2 (the DIA SDDMM) at p = 128, 16, 2 and 1 on the
+   stencil, at p = 128 and 2 on the tri-stencil's 13 offsets and on K1's
+   awkward set with X, then Y, unaligned, each launch twice and bitwise
+   equal, after printing its window tables (``k2_windows``); the chunk
+   kernels on a uniform random pattern of
    cfd2 size (3,087,898 entries; SpMM and SDDMM at p = 128, SpMV at
    p = 1, the SpMM over the transpose plan too), each run twice and
    bitwise equal, and at a small size with empty rows, a row of 5,000
@@ -29,11 +33,12 @@ last line:
 3. runs ``sparse_mm`` forward and backward through the public entry
    point on that stencil, on a hybrid pattern at 85 % DIA coverage, at
    p = 16, and on the random pattern at p = 128 and p = 1, and public
-   ``sddmm`` on the random pattern; checks outputs and gradients against
-   the generic ``backend="xla"`` path on the card and a small case
-   against a dense product, and checks that each kernel of each path
-   launched during its run (counters set to 0 just before, read just
-   after; K1's plain version must not run either);
+   ``sddmm`` on the random pattern and on the stencil; checks outputs and
+   gradients against the generic ``backend="xla"`` path on the card and
+   a small case against a dense product, and checks that each kernel of
+   each path launched during its run (counters set to 0 just before,
+   read just after; K1's and K2's plain versions must not run on a path
+   that launches their kernel);
    ``sparse_triangular_solve`` forward and backward on two patterns:
    *tri-stencil*, the stencil's lower triangle (13 offsets, diagonally
    dominant) at p = 128 and p = 2, its upper mirror and its transposed
@@ -74,11 +79,14 @@ last line:
 4. times the chained forward and forward+backward steps, profiles
    seven of them, times the triangular solve's host plans, times K1 per
    launch at p = 128, 16 and 1 and for Aᵀ G (``k1_times``: event and
-   profiled device time, bound, plain version, ``torch.sparse.mm``), and
+   profiled device time, bound, plain version, ``torch.sparse.mm``) and
+   K2 at p = 128, 16, 2 and 1 (``k2_times``, beside
+   ``torch.sparse.sampled_addmm``), and
    times each kernel, its plain version and one PyTorch library call that
    computes the same function, with CUDA events, and prints them as a
    ``{"kernels": [...]}`` line (twelve rows, K13's from phase 3d, K1's
-   with ``per_launch``);
+   and K2's with ``per_launch``, K3's with its and ``index_select``'s
+   profiled device time);
 5. prints ``{"ok": true, "device": {...}}`` as the last line.
 
 Without a CUDA device it exits 1 and prints no result.
@@ -86,9 +94,11 @@ Without a CUDA device it exits 1 and prints no result.
 ``python3 chip_smoke.py --k1`` prints only K1's ``k1_times`` and the
 times of the steps that launch it (stencil, hybrid85, stencil p=16,
 sharded-dia fwd+bwd; wall and profiled device time) as one
-``k1_compare`` line.  Copied into an unpacked checkout of another commit
-(``git archive``) and run from there, it measures that commit's K1 the
-same way, so two commits compare on one card in turns.
+``k1_compare`` line; ``--k2`` prints K2's ``k2_times`` and the same
+steps with tri-stencil p = 2 fwd+bwd as one ``k2_compare`` line.  Copied
+into an unpacked checkout of another commit (``git archive``) and run
+from there, either measures that commit's kernel the same way, so two
+commits compare on one card in turns.
 """
 
 import contextlib
@@ -120,8 +130,10 @@ FUSED = ("chunk_bwd_pass1", "chunk_bwd_pass2")
 GRAD_TOL = (1e-4, 1e-6)  # (rtol, atol): LSE gradients, the JAX tests' own
 FAST_REL = 1e-2  # |gradB - split| / |split| with V stored in bfloat16
 ROUTES = []             # triangular-solve routes taken, in order
-PLAIN_K1 = [0]          # K1's plain version called by its wrapper
+PLAIN = {"dia_spmm_plain": 0,    # K1's and K2's plain versions called
+         "dia_sddmm_plain": 0}   # by their wrappers
 K1_PS = (128, 16, 1)    # K1's widths on the main path: stencil, p=16, matvec
+K2_PS = (128, 16, 2, 1)  # K2's: stencil, p=16, tri-stencil p=2, matvec
 
 
 def smi_line() -> str:
@@ -262,23 +274,26 @@ def track_routes():
         setattr(ts, name, wrapped)
 
 
-def count_plain_k1():
-    """Count calls of K1's plain version made through the kernels module
-    (the wrapper's CPU path) in ``PLAIN_K1``: a step on the card must
-    make none."""
+def count_plain():
+    """Count calls of K1's and K2's plain versions made through the
+    kernels module (their wrappers' CPU paths) in ``PLAIN``: a step on
+    the card must make none."""
     from torchsparsegradutils_tpu_torch.kernels import dia
-    plain = dia.spmm_core_plain
+    for key, name in (("dia_spmm_plain", "spmm_core_plain"),
+                      ("dia_sddmm_plain", "sddmm_core_plain")):
+        plain = getattr(dia, name)
 
-    def counted(*a, **k):
-        PLAIN_K1[0] += 1
-        return plain(*a, **k)
-    dia.spmm_core_plain = counted
+        def counted(*a, _plain=plain, _key=key, **k):
+            PLAIN[_key] += 1
+            return _plain(*a, **k)
+        setattr(dia, name, counted)
 
 
 def zero_counters():
     for fn in counters().values():
         fn.launches = 0
-    PLAIN_K1[0] = 0
+    for key in PLAIN:
+        PLAIN[key] = 0
 
 
 def read_counters(label, expect, forbid=()):
@@ -287,13 +302,14 @@ def read_counters(label, expect, forbid=()):
     import torch
     torch.cuda.synchronize()
     launches = {k: fn.launches for k, fn in counters().items()}
-    launches["dia_spmm_plain"] = PLAIN_K1[0]
+    launches.update(PLAIN)
     print(f"  {label}: launches {launches}")
     missing = [k for k in expect if launches[k] == 0]
     if missing:
         raise AssertionError(f"{label}: kernels {missing} never launched")
-    if "dia_spmm" in expect:
-        forbid = tuple(forbid) + ("dia_spmm_plain",)
+    forbid = tuple(forbid) + tuple(f"{k}_plain" for k in ("dia_spmm",
+                                                          "dia_sddmm")
+                                   if k in expect)
     wrong = [k for k in forbid if launches[k] != 0]
     if wrong:
         raise AssertionError(f"{label}: kernels {wrong} launched off their "
@@ -448,6 +464,78 @@ def check_k1(A, plan, grid, B, G, gen, dev):
             if lead and ba.data_ptr() % 16 == 0:
                 raise AssertionError("unaligned B: the view is aligned")
             k1_repeat_close(label, ag.offsets_on(dev), ga, ba, ag, name)
+    return err
+
+
+def k2_repeat_close(label, offs, X, Y, geo, dt_name):
+    """K2 on (offs, X, Y) twice (bitwise equal), against its plain
+    version; returns the max abs error."""
+    import torch
+    from torchsparsegradutils_tpu_torch.kernels.dia import (sddmm_core,
+                                                            sddmm_core_plain)
+    got = sddmm_core(offs, X, Y, geo)
+    if not torch.equal(got, sddmm_core(offs, X, Y, geo)):
+        raise AssertionError(f"dia_sddmm {label} [{dt_name}]: two launches "
+                             "differ")
+    return close(f"dia_sddmm {label} (repeats bitwise)", got,
+                 sddmm_core_plain(offs, X, Y), dt_name)
+
+
+def unaligned(t, lead, gen):
+    """``t`` as a contiguous view ``lead`` elements into a larger storage
+    (not 16-byte aligned for ``lead`` > 0)."""
+    import torch
+    if not lead:
+        return t
+    buf = torch.randn(lead + t.numel(), generator=gen).to(t.device, t.dtype)
+    v = buf[lead:].view(t.shape).copy_(t)
+    if v.data_ptr() % 16 == 0:
+        raise AssertionError("unaligned operand: the view is aligned")
+    return v
+
+
+def check_k2(A, plan, tplan, B, G, gen, dev):
+    """K2 against its plain version in three dtypes, each launch twice
+    and bitwise equal: at the cfd2 stencil at each p of ``K2_PS`` (X = G,
+    Y = B, the stencil step's gradA), the tri-stencil's 13 offsets at
+    p = 128 and 2, and :func:`k1_awkward`'s set with X, then Y, unaligned
+    where the set passes an unaligned operand.  Prints K2's window tables
+    at its p = 128, 16 and 1 tiles; returns the max f32 error."""
+    import torch
+    from torchsparsegradutils_tpu_torch.kernels.dia import sddmm_tile
+    geo, tgeo = plan.geo, tplan.geo
+    tables = {}
+    for p in (128, 16, 1):
+        b = B[:, :p].contiguous()
+        name, rows, _, cap, count, seg = sddmm_tile(b, b)
+        tables[f"p{p}"] = {
+            "tile": name, "rows_per_tile": rows, "cap": cap,
+            "max_runs": count, "seg": seg,
+            "stencil": geo.windows(rows, cap, count, seg).tolist(),
+            "tri_stencil": tgeo.windows(rows, cap, count, seg).tolist()}
+    print(json.dumps({"k2_windows": tables}))
+    err = 0.0
+    for dt in (torch.float32, torch.bfloat16, torch.float64):
+        name = str(dt).removeprefix("torch.")
+        for p in K2_PS:
+            x, y = (t[:, :p].contiguous().to(dt) for t in (G, B))
+            e = k2_repeat_close(f"cfd2 stencil p={p}", geo.offsets_on(dev),
+                                x, y, geo, name)
+            if dt == torch.float32:
+                err = max(err, e)
+        for p in (128, 2):
+            x, y = (t[:, :p].contiguous().to(dt) for t in (G, B))
+            k2_repeat_close(f"tri-stencil p={p}", tgeo.offsets_on(dev), x, y,
+                            tgeo, name)
+        for label, ag, p, lead in k1_awkward(A):
+            x = torch.randn(ag.n, p, generator=gen).to(dev, dt)
+            y = torch.randn(ag.m, p, generator=gen).to(dev, dt)
+            turns = ([(x, y, "")] if not lead else
+                     [(unaligned(x, lead, gen), y, " (X unaligned)"),
+                      (x, unaligned(y, lead, gen), " (Y unaligned)")])
+            for xa, ya, what in turns:
+                k2_repeat_close(label + what, ag.offsets_on(dev), xa, ya, ag,
+                                name)
     return err
 
 
@@ -835,16 +923,55 @@ def k1_times(A, plan, grid, B, G, dev):
     return out
 
 
-def k1_compare() -> int:
-    """``--k1``: K1's times (:func:`k1_times`) and the times of the steps
-    that launch it (stencil, hybrid85, stencil p=16, sharded-dia fwd+bwd),
-    nothing else: run in turns from two checkouts to compare them on one
-    card.  Prints one JSON line."""
+def k2_times(A, plan, B, G, dev):
+    """K2's time per launch (CUDA events, and the kernel's profiled device
+    time) at each p of ``K2_PS`` (X = G, Y = B), each beside its bound,
+    its plain version and ``torch.sparse.sampled_addmm`` on A's CSR, which
+    computes the same values at the same entries."""
+    import inspect
+
+    import torch
+    from torchsparsegradutils_tpu_torch.kernels.dia import (sddmm_core,
+                                                            sddmm_core_plain)
+    # a checkout from before K2's window table passes no geometry
+    with_geo = "geo" in inspect.signature(sddmm_core).parameters
+    kw = {"geo": plan.geo} if with_geo else {}
+    n, m, K = A.shape[0], A.shape[1], plan.K
+    cells = valid_cells(plan.offsets.tolist(), n, m)
+    csr = torch.sparse_csr_tensor(
+        torch.from_numpy(A.indptr_np().astype("int64")).to(dev),
+        A.cols_t(), A.values, (n, m))
+    offs = plan.geo.offsets_on(dev)
+    out = {}
+    for p in K2_PS:
+        X, Y = G[:, :p].contiguous(), B[:, :p].contiguous()
+        b_ms, b_by = bound((n * p + m * p + n * K) * 4 + K * 8,
+                           2 * cells * p)
+        out[f"p{p}"] = {
+            "ms": time_ms(lambda: sddmm_core(offs, X, Y, **kw)),
+            "device_ms": device_ms(lambda: sddmm_core(offs, X, Y, **kw),
+                                   "dia_sddmm_kernel"),
+            "plain_ms": time_ms(lambda: sddmm_core_plain(offs, X, Y),
+                                reps=5),
+            "library_ms": time_ms(lambda: torch.sparse.sampled_addmm(
+                csr, X, Y.t(), beta=0.0)),
+            "bound_ms": b_ms, "bound_by": b_by}
+    return out
+
+
+def compare(which) -> int:
+    """``--k1`` / ``--k2``: that kernel's times (:func:`k1_times`,
+    :func:`k2_times`) and the times of the steps that launch it (stencil,
+    hybrid85, stencil p=16, sharded-dia fwd+bwd; for K2 also tri-stencil
+    p = 2 fwd+bwd), wall and profiled device time, nothing else: run in
+    turns from two checkouts to compare them on one card.  Prints one
+    JSON line."""
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
-    from torchsparsegradutils_tpu_torch import sparse_mm
+    from torchsparsegradutils_tpu_torch import (sparse_mm,
+                                                sparse_triangular_solve)
     from torchsparsegradutils_tpu_torch.kernels import _build
     from torchsparsegradutils_tpu_torch.kernels.dia import (build_dia_plan,
                                                             values_to_grid)
@@ -861,8 +988,11 @@ def k1_compare() -> int:
     G = torch.randn(N, P, generator=gen).to(dev)
     H = hybrid_sparse((N, N), STENCIL_OFFSETS, NNZ_HYBRID, dia_coverage=0.85,
                       generator=gen, device=dev)
-    res = {"k1": k1_times(A, plan, values_to_grid(plan, A.values), B, G,
-                          dev)}
+    if which == "k1":
+        res = {"k1": k1_times(A, plan, values_to_grid(plan, A.values), B, G,
+                              dev)}
+    else:
+        res = {"k2": k2_times(A, plan, B, G, dev)}
 
     def step(M, p):
         return chained_step(lambda v, b: sparse_mm(M.with_data(v), b),
@@ -871,14 +1001,23 @@ def k1_compare() -> int:
     steps = {}
     with one_rank_group(dev):
         f = sharded_dia_spmm(A)
-        for label, fn in (("stencil", step(A, P)), ("hybrid85", step(H, P)),
-                          ("stencil_p16", step(A, 16)),
-                          ("sharded_dia", chained_step(f, A.values, B, G))):
-            steps[f"{label}_fwd_bwd_ms"] = time_ms(fn, reps=50)
+        todo = [("stencil", step(A, P)), ("hybrid85", step(H, P)),
+                ("stencil_p16", step(A, 16)),
+                ("sharded_dia", chained_step(f, A.values, B, G))]
+        if which == "k2":
+            T = stencil_sparse((N, N), TRI_OFFSETS, well_conditioned=True,
+                               generator=gen, device=dev)
+            todo.append(("tri_stencil_p2", chained_step(
+                lambda v, b: sparse_triangular_solve(T.with_data(v), b,
+                                                     upper=False),
+                T.values, B[:, :2].contiguous(), G[:, :2].contiguous())))
+        for label, fn in todo:
+            steps[f"{label}_fwd_bwd_ms"] = time_ms(
+                fn, reps=10 if label.startswith("tri") else 50)
             # the device's share, which the host's pace does not move
             steps[f"{label}_fwd_bwd_device_ms"] = device_ms(fn, "", reps=10)
     res["steps"] = steps
-    print(json.dumps({"k1_compare": res, "card": card}))
+    print(json.dumps({f"{which}_compare": res, "card": card}))
     return 0
 
 
@@ -1185,12 +1324,11 @@ def main() -> int:
           f"{time.perf_counter() - t1:.1f} s")
     lplan, lvals = lse_awkward_plan()
     e1 = check_k1(A, plan, grid, B, G, gen, dev)
+    e3 = check_k2(A, plan, tplan, B, G, gen, dev)
     err = {}
     for dt in (torch.float32, torch.bfloat16, torch.float64):
         name = str(dt).removeprefix("torch.")
         g, b, gg = grid.to(dt), B.to(dt), G.to(dt)
-        e3 = close("dia_sddmm", sddmm_core(offs, gg, b),
-                   sddmm_core_plain(offs, gg, b), name)
         vals = A.values.to(dt)
         for what, src, idx in (("values->grid", vals, maps["src_of_grid"]),
                                ("grid->values", g.reshape(-1), maps["pos"])):
@@ -1243,7 +1381,7 @@ def main() -> int:
             err.update(ef)
 
     # ---- phase 3: the main path --------------------------------------------
-    count_plain_k1()
+    count_plain()
     print(f"phase 3: sparse_mm fwd+bwd through the public entry point "
           f"({time.perf_counter() - t0:.1f} s in)")
     small_st = stencil_sparse((512, 512), [-40, -3, 0, 2, 40],
@@ -1273,6 +1411,13 @@ def main() -> int:
     for name, g_, r_ in zip(("values", "gradX", "gradY"), got,
                             sddmm_fwd_bwd(R, G, B, C, "xla")):
         close(f"random sddmm {name} vs generic path", g_, r_, "float32")
+    CA = torch.randn(A.nnz, generator=gen).to(dev)
+    zero_counters()
+    got = sddmm_fwd_bwd(A, G, B, CA, "auto")
+    read_counters("stencil sddmm p=128", DIA_KERNELS)
+    for name, g_, r_ in zip(("values", "gradX", "gradY"), got,
+                            sddmm_fwd_bwd(A, G, B, CA, "xla")):
+        close(f"stencil sddmm {name} vs generic path", g_, r_, "float32")
 
     print(f"phase 3b: sparse_triangular_solve fwd+bwd "
           f"({time.perf_counter() - t0:.1f} s in)")
@@ -1507,6 +1652,8 @@ def main() -> int:
 
     k1 = k1_times(A, plan, grid, B, G, dev)
     print(json.dumps({"k1_times": k1, "card": card}))
+    k2 = k2_times(A, plan, B, G, dev)
+    print(json.dumps({"k2_times": k2, "card": card}))
     es = 4
     n, m, K = N, N, plan.K
     cells = valid_cells(plan.offsets.tolist(), n, m)
@@ -1539,7 +1686,7 @@ def main() -> int:
          "torchsparsegradutils_tpu/kernels/dia_mxu.py:974 (K2 "
          "sddmm_core_mxu) and torchsparsegradutils_tpu/kernels/dia.py:538 "
          "(K5 _dia_sddmm_pallas)", launches,
-         lambda: sddmm_core(offs, G, B),
+         lambda: sddmm_core(offs, G, B, plan.geo),
          lambda: sddmm_core_plain(offs_list, G, B),
          lambda: torch.sparse.sampled_addmm(csr, G, B.t(), beta=0.0),
          bound((n * P + m * P + n * K) * es + K * 8, 2 * cells * P)),
@@ -1656,6 +1803,13 @@ def main() -> int:
                                    "entries, as include_zeros=False")
         if name == "dia_spmm":
             row["per_launch"] = k1
+        if name == "dia_sddmm":
+            row["per_launch"] = k2
+        if name == "gather":
+            # K3's event time is near the host's launch rate: the profiled
+            # kernel time of K3 and of the library call
+            row["device_ms"] = device_ms(kern, "gather_kernel")
+            row["library_device_ms"] = device_ms(lib, "")
         rows.append(row)
     rows.append(k13_row)
     print(f"card: {card}")
@@ -1668,6 +1822,7 @@ def main() -> int:
 
 if __name__ == "__main__":
     t0 = time.perf_counter()
-    rc = k1_compare() if sys.argv[1:] == ["--k1"] else main()
+    mode = {"--k1": "k1", "--k2": "k2"}.get(" ".join(sys.argv[1:]))
+    rc = compare(mode) if mode else main()
     print(f"chip_smoke: {time.perf_counter() - t0:.1f} s", file=sys.stderr)
     sys.exit(rc)

@@ -42,9 +42,15 @@ pytestmark = pytest.mark.cuda
 TOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (2e-2, 1e-5),
        torch.float64: (1e-12, 1e-12)}
 DTYPES = list(TOL)
-# (n, m, p, offsets, lead): ``lead`` > 0 passes B as a contiguous view
-# that many elements into its storage, so its data pointer is not 16-byte
-# aligned and K1 takes its scalar tiles
+# the cfd2 stencil of bench.py:44-46, and its 13 lower offsets (the
+# tri-stencil)
+CFD2_OFFSETS = sorted({0, 1, -1, 2, -2, 3, -3, 49, -49, 50, -50, 51, -51,
+                       2401, -2401, 2449, -2449, 2450, -2450, 2451, -2451,
+                       2499, -2499, 2500, -2500})
+TRI_OFFSETS = [o for o in CFD2_OFFSETS if o <= 0]
+# (n, m, p, offsets, lead): ``lead`` > 0 passes B, and X, as contiguous
+# views that many elements into their storage, so their data pointers are
+# not 16-byte aligned and K1 and K2 take their scalar tiles
 SHAPES = [(1000, 1000, 1, [-3, 0, 3], 0),
           (777, 1200, 33, [-500, -1, 0, 7, 900], 0),
           (1300, 600, 130, [-1000, -5, 0, 2, 599], 0),
@@ -54,7 +60,10 @@ SHAPES = [(1000, 1000, 1, [-3, 0, 3], 0),
           (1000, 900, 16, [-300, -257, -255, 0, 255, 257], 0),
           (900, 1100, 130, [-64, -3, -2, -1, 0, 1, 2, 3, 64], 0),
           (640, 700, 64, [-40, -1, 0, 1, 40], 1),           # unaligned B
-          (500, 500, 8, [-3000, -1, 0, 1, 2900], 0)]        # windows of holes
+          (500, 500, 8, [-3000, -1, 0, 1, 2900], 0),        # windows of holes
+          (1500, 1300, 2, [-40, -2, -1, 0, 1, 2, 3, 4, 5, 40], 0),   # p = 2
+          (6000, 6000, 128, TRI_OFFSETS, 0),                # the tri-stencil
+          (6000, 6000, 2, TRI_OFFSETS, 1)]
 
 
 @pytest.fixture
@@ -82,31 +91,47 @@ def test_dia_kernels_match_plain(dev, dtype, n, m, p, offsets, lead):
     B = torch.randn(lead + m * p, generator=g).to(dev, dtype)[lead:].view(
         m, p)
     assert B.is_contiguous() and (lead == 0 or B.data_ptr() % 16 != 0)
-    X = torch.randn(n, p, generator=g).to(dev, dtype)
+    X = torch.randn(lead + n * p, generator=g).to(dev, dtype)[lead:].view(
+        n, p)
     before = spmm_core.launches, sddmm_core.launches
     close(spmm_core(offs, grid, B), spmm_core_plain(offs, grid, B), dtype)
-    close(sddmm_core(offs, X, B), sddmm_core_plain(offs, X, B), dtype)
+    # K2 on X and B as given, then (unaligned) each of them alone
+    pairs = [(X, B)] + ([(X, B.clone()), (X.clone(), B)] if lead else [])
+    for x, y in pairs:
+        close(sddmm_core(offs, x, y), sddmm_core_plain(offs, x, y), dtype)
     torch.cuda.synchronize()
-    assert (spmm_core.launches, sddmm_core.launches) == (before[0] + 1,
-                                                         before[1] + 1)
+    assert (spmm_core.launches, sddmm_core.launches) == (
+        before[0] + 1, before[1] + len(pairs))
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_dia_spmm_repeats_bitwise_at_the_cfd2_stencil(dev, dtype):
     # bench.py's 25-offset stencil at N = 123,440, p = 128: three windows
-    offsets = sorted({0, 1, -1, 2, -2, 3, -3, 49, -49, 50, -50, 51, -51,
-                      2401, -2401, 2449, -2449, 2450, -2450, 2451, -2451,
-                      2499, -2499, 2500, -2500})
     n = 123_440
-    geo = dia.DiaGeometry(np.array(offsets), n, n)
+    geo = dia.DiaGeometry(np.array(CFD2_OFFSETS), n, n)
     g = torch.Generator().manual_seed(7)
-    grid = torch.randn(n, len(offsets), generator=g).to(dev, dtype)
+    grid = torch.randn(n, len(CFD2_OFFSETS), generator=g).to(dev, dtype)
     B = torch.randn(n, 128, generator=g).to(dev, dtype)
     offs = geo.offsets_on(dev)
     got = spmm_core(offs, grid, B, geo)
     assert torch.equal(got, spmm_core(offs, grid, B, geo))
     assert torch.equal(got, spmm_core(offs, grid, B))   # table from offs
     close(got, spmm_core_plain(offs, grid, B), dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_dia_sddmm_repeats_bitwise_at_the_cfd2_stencil(dev, dtype):
+    # K2 at the stencil step's gradA: X = G, Y = B, N = 123,440, p = 128
+    n = 123_440
+    geo = dia.DiaGeometry(np.array(CFD2_OFFSETS), n, n)
+    g = torch.Generator().manual_seed(8)
+    X = torch.randn(n, 128, generator=g).to(dev, dtype)
+    Y = torch.randn(n, 128, generator=g).to(dev, dtype)
+    offs = geo.offsets_on(dev)
+    got = sddmm_core(offs, X, Y, geo)
+    assert torch.equal(got, sddmm_core(offs, X, Y, geo))
+    assert torch.equal(got, sddmm_core(offs, X, Y))     # table from offs
+    close(got, sddmm_core_plain(offs, X, Y), dtype)
 
 
 @pytest.mark.parametrize("dtype", DTYPES)

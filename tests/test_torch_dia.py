@@ -167,9 +167,9 @@ CFD2_OFFSETS = sorted({0, 1, -1, 2, -2, 3, -3, 49, -49, 50, -50, 51, -51,
                        2499, -2499, 2500, -2500})      # bench.py:44-46
 
 
-def _window_covers(offsets, rows, cap, count):
+def _window_covers(offsets, rows, cap, count, seg=None):
     # every k once, in ascending order; off_lo/off_hi its window's ends
-    t = dia.window_table(offsets, rows, cap, count)
+    t = dia.window_table(offsets, rows, cap, count, seg)
     ks = np.concatenate([np.arange(k, k + c) for k, c, _, _ in t])
     np.testing.assert_array_equal(ks, np.arange(len(offsets)))
     offs = np.asarray(offsets)
@@ -177,42 +177,57 @@ def _window_covers(offsets, rows, cap, count):
     np.testing.assert_array_equal(t[:, 3], offs[t[:, 0] + t[:, 1] - 1])
 
 
-def _window_cap(offsets, rows, cap, count):
-    t = dia.window_table(offsets, rows, cap, count)
-    assert ((t[:, 3] - t[:, 2]) <= cap).all() and (t[:, 1] <= count).all()
+def _window_cap(offsets, rows, cap, count, seg=None):
+    t = dia.window_table(offsets, rows, cap, count, seg)
+    assert ((t[:, 3] - t[:, 2]) <= cap).all()
+    # a window holds at most count offsets, or count runs cut at seg
+    runs = [len(_cut_runs(offsets[k:k + c], seg)) for k, c, _, _ in t]
+    assert max(runs if seg else t[:, 1]) <= count
     assert len(t) > 1                                   # the caps split
 
 
-def _window_cfd2(offsets, rows, cap, count):
+def _window_cfd2(offsets, rows, cap, count, seg=None):
     t = dia.DiaGeometry(np.array(offsets), 1000, 1000).windows(rows, cap,
-                                                                count)
+                                                                count, seg)
     np.testing.assert_array_equal(t, [[0, 6, -2500, -2401],
                                       [6, 13, -51, 51],
                                       [19, 6, 2401, 2500]])
 
 
-def _window_isolated(offsets, rows, cap, count):
-    t = dia.window_table(offsets, rows, cap, count)
+def _window_isolated(offsets, rows, cap, count, seg=None):
+    t = dia.window_table(offsets, rows, cap, count, seg)
     np.testing.assert_array_equal(t[:, 1], np.ones(len(offsets)))
 
 
-def _window_mirror(offsets, rows, cap, count):
+def _window_mirror(offsets, rows, cap, count, seg=None):
     geo = dia.DiaGeometry(np.array(offsets), 700, 900)
-    t, tt = geo.windows(rows, cap, count), geo.T.windows(rows, cap, count)
+    t, tt = (g.windows(rows, cap, count, seg) for g in (geo, geo.T))
     K = len(offsets)
     np.testing.assert_array_equal(
         tt[::-1], np.stack([K - t[:, 0] - t[:, 1], t[:, 1], -t[:, 3],
                             -t[:, 2]], 1))
 
 
-def _window_runs(offsets, rows, cap, count):
-    # the kernel's plan: the table, each window's first run, and runs of
+def _cut_runs(offsets, seg):
+    """Lengths of the runs of consecutive ``offsets``, each cut at
+    ``seg`` offsets (uncut when ``seg`` is None)."""
+    runs = []
+    for i, o in enumerate(offsets):
+        if i and o == offsets[i - 1] + 1 and (seg is None or runs[-1] < seg):
+            runs[-1] += 1
+        else:
+            runs.append(1)
+    return runs
+
+
+def _window_runs(offsets, rows, cap, count, seg=None):
+    # the kernels' plan: the table, each window's first run, and runs of
     # consecutive offsets (k - k_first, off_k - off_lo, length) that
-    # cover the window's offsets in order
+    # cover the window's offsets in order, cut at seg for K2
     geo = dia.DiaGeometry(np.array(offsets), 500, 500)
-    t = geo.windows(rows, cap, count)
+    t = geo.windows(rows, cap, count, seg)
     plan, W, NR, span, most = geo.windows_on(torch.device("cpu"), rows, cap,
-                                             count)
+                                             count, seg)
     assert plan.dtype == torch.int64 and W == len(t)
     assert (span, most) == ((t[:, 3] - t[:, 2]).max(), t[:, 1].max())
     plan = plan.numpy()
@@ -225,33 +240,157 @@ def _window_runs(offsets, rows, cap, count):
         np.testing.assert_array_equal(got, offs[kf:kf + cnt])
         assert all(np.diff(offs[kf + kk:kf + kk + L]).tolist() == [1] * (L - 1)
                    for kk, _, L in runs[first[w]:first[w + 1]])
+        lengths = runs[first[w]:first[w + 1], 2].tolist()
+        assert lengths == _cut_runs(offs[kf:kf + cnt].tolist(), seg)
+        if seg is not None:
+            assert len(lengths) <= count
 
 
-@pytest.mark.parametrize("check,offsets,rows,cap,count", [
-    (_window_covers, CFD2_OFFSETS, 64, 128, 32),
-    (_window_covers, list(range(-128, 128)), 128, 192, 31),
-    (_window_covers, [-900, -7, -6, 0, 30, 31, 400], 32, 40, 2),
-    (_window_cap, list(range(-128, 128)), 128, 100, 32),
-    (_window_cap, list(range(0, 400, 3)), 64, 200, 16),
-    (_window_cfd2, CFD2_OFFSETS, 64, 128, 32),
-    (_window_cfd2, CFD2_OFFSETS, 128, 192, 31),
-    (_window_isolated, [-5000, -1000, 0, 700, 3000], 128, 192, 31),
-    (_window_isolated, [-3, 0, 3], 2, 192, 31),
-    (_window_mirror, CFD2_OFFSETS, 64, 128, 32),
-    (_window_mirror, [-400, -60, -1, 0, 2, 90, 300], 128, 192, 31),
-    (_window_runs, CFD2_OFFSETS, 128, 192, 31),
-    (_window_runs, [-40, -39, -38, -1, 0, 1, 2, 30, 60, 61], 16, 200, 4),
+# K2's tiles (kernels/dia.py:sddmm_tile): v32 at p = 128 in float32 (128
+# rows, cap 153, 8 runs of 4), s1 at p = 1 (256 rows, cap 9981, 4 runs)
+K2_V32, K2_S1 = (128, 153, 8, 4), (256, 9981, 4, 4)
+
+
+@pytest.mark.parametrize("check,offsets,rows,cap,count,seg", [
+    (_window_covers, CFD2_OFFSETS, 64, 128, 32, None),
+    (_window_covers, list(range(-128, 128)), 128, 192, 31, None),
+    (_window_covers, [-900, -7, -6, 0, 30, 31, 400], 32, 40, 2, None),
+    (_window_cap, list(range(-128, 128)), 128, 100, 32, None),
+    (_window_cap, list(range(0, 400, 3)), 64, 200, 16, None),
+    (_window_cfd2, CFD2_OFFSETS, 64, 128, 32, None),
+    (_window_cfd2, CFD2_OFFSETS, 128, 192, 31, None),
+    (_window_isolated, [-5000, -1000, 0, 700, 3000], 128, 192, 31, None),
+    (_window_isolated, [-3, 0, 3], 2, 192, 31, None),
+    (_window_mirror, CFD2_OFFSETS, 64, 128, 32, None),
+    (_window_mirror, [-400, -60, -1, 0, 2, 90, 300], 128, 192, 31, None),
+    (_window_runs, CFD2_OFFSETS, 128, 192, 31, None),
+    (_window_runs, [-40, -39, -38, -1, 0, 1, 2, 30, 60, 61], 16, 200, 4,
+     None),
+    (_window_covers, CFD2_OFFSETS, *K2_V32),
+    (_window_covers, list(range(-128, 128)), *K2_S1),
+    (_window_cap, list(range(-128, 128)), *K2_V32),
+    (_window_cap, list(range(0, 400, 3)), *K2_S1),
+    (_window_cfd2, CFD2_OFFSETS, *K2_V32),
+    (_window_cfd2, CFD2_OFFSETS, *K2_S1),
+    (_window_isolated, [-5000, -1000, 0, 700, 3000], *K2_S1),
+    (_window_mirror, [-400, -60, -1, 0, 2, 90, 300], *K2_V32),
+    (_window_runs, CFD2_OFFSETS, *K2_V32),
+    (_window_runs, CFD2_OFFSETS, *K2_S1),
+    (_window_runs, list(range(-20, 20)) + [50, 51, 53], 64, 200, 3, 4),
 ], ids=["covers-cfd2", "covers-run256", "covers-small", "cap-span",
         "cap-count", "cfd2-64rows", "cfd2-128rows", "isolated",
         "isolated-narrow-tile", "mirror-cfd2", "mirror-uneven", "runs-cfd2",
-        "runs-split"])
-def test_window_table(check, offsets, rows, cap, count):
-    """K1's window table: each k once and in order, within the cap, the
-    cfd2 stencil in three windows of 6, 13 and 6 offsets, isolated
-    offsets one window each, the transpose's table the mirror of the
-    forward's (where no cap splits a window), and the runs the kernel
-    reads."""
-    check(offsets, rows, cap, count)
+        "runs-split", "k2-covers-cfd2", "k2-covers-run256", "k2-cap-run256",
+        "k2-cap-spread", "k2-cfd2-v32", "k2-cfd2-s1", "k2-isolated",
+        "k2-mirror-uneven", "k2-runs-cfd2-v32", "k2-runs-cfd2-s1",
+        "k2-runs-cut"])
+def test_window_table(check, offsets, rows, cap, count, seg):
+    """The window table of K1 (``seg`` None: at most ``count`` offsets a
+    window) and K2 (at most ``count`` runs cut at ``seg`` offsets): each k
+    once and in order, within the cap, the cfd2 stencil in three windows
+    of 6, 13 and 6 offsets, isolated offsets one window each, the
+    transpose's table the mirror of the forward's (where no cap splits a
+    window), and the runs the kernels read."""
+    check(offsets, rows, cap, count, seg)
+
+
+def _view(shape, dtype, lead):
+    """A contiguous CPU tensor ``lead`` elements into its storage."""
+    n = int(np.prod(shape))
+    return torch.zeros(lead + n, dtype=dtype)[lead:].view(shape)
+
+
+@pytest.mark.parametrize("p,dtype,lead_x,lead_y,want", [
+    (128, torch.float32, 0, 0, "v32"), (32, torch.bfloat16, 0, 0, "v32"),
+    (128, torch.float64, 0, 0, "v16"), (16, torch.float32, 0, 0, "v16"),
+    (4, torch.bfloat16, 0, 0, "v16"), (128, torch.float32, 1, 0, "s32"),
+    (128, torch.float32, 0, 2, "s32"), (64, torch.float64, 1, 1, "s32"),
+    (130, torch.float32, 0, 0, "s32"), (16, torch.float32, 0, 3, "s4"),
+    (3, torch.float32, 0, 0, "s4"), (2, torch.float32, 0, 0, "s4"),
+    (2, torch.bfloat16, 1, 0, "s4"), (1, torch.float64, 0, 0, "s1"),
+    (1, torch.float32, 1, 1, "s1")])
+def test_sddmm_tile_picks_by_p_dtype_and_alignment(p, dtype, lead_x, lead_y,
+                                                   want):
+    X, Y = _view((7, p), dtype, lead_x), _view((9, p), dtype, lead_y)
+    name, rows, cols, cap, count, seg = dia.sddmm_tile(X, Y)
+    vw, pt, rg, rt, lt = dia.SDDMM_TILES[name]
+    assert name == want
+    assert (rows, cols, count, seg) == (rg * rt, pt,
+                                        dia.SDDMM_THREADS // rg, lt)
+    # the Y window of a stage, spare rows included, fits its budget
+    stride = 1 if pt == 1 else pt + vw
+    assert (rows + cap + lt - 1) * stride * X.element_size() \
+        <= dia.WINDOW_B_BYTES
+
+
+def _k2_walk(offsets, X, Y, tile):
+    """csrc/dia_sddmm.cu's loop in numpy: each tile of R rows, each window
+    of the plan with its Y rows staged (zeros outside [0, m), NaN in the
+    spare rows, which no stored output may read), each run of at most LT
+    offsets; windows wholly outside store zeros."""
+    vw, pt, rg, rt, lt = dia.SDDMM_TILES[tile]
+    R, count = rg * rt, dia.SDDMM_THREADS // rg
+    cap = dia.WINDOW_B_BYTES // ((1 if pt == 1 else pt + vw) * 8) - R - lt + 1
+    geo = dia.DiaGeometry(np.array(offsets), X.shape[0], Y.shape[0])
+    plan, W, NR, span_max, _ = geo.windows_on(torch.device("cpu"), R, cap,
+                                              count, lt)
+    plan = plan.numpy()
+    first, runs = plan[4 * W:5 * W + 1], plan[5 * W + 1:].reshape(NR, 3)
+    (n, p), m, K = X.shape, Y.shape[0], len(offsets)
+    out = np.full((n, K), np.nan)
+    for r0 in range(0, n, R):
+        Xs = np.zeros((R, p))
+        Xs[:min(R, n - r0)] = X[r0:r0 + R]
+        for w in range(W):
+            kf, _, lo, hi = plan[4 * w:4 * w + 4]
+            assert first[w + 1] - first[w] <= count
+            rows = np.arange(R + span_max + lt - 1) + r0 + lo
+            Ys = np.full((len(rows), p), np.nan)
+            inside = (rows >= 0) & (rows < m)
+            if not inside[:R + hi - lo].any():          # a dead window
+                for kk, _, L in runs[first[w]:first[w + 1]]:
+                    out[r0:r0 + R, kf + kk:kf + kk + L] = 0
+                continue
+            Ys[:R + hi - lo] = 0
+            Ys[inside] = Y[rows[inside]]
+            for kk, d, L in runs[first[w]:first[w + 1]]:
+                assert 1 <= L <= lt
+                for t in range(L):
+                    got = (Xs * Ys[d + t:d + t + R]).sum(1)
+                    out[r0:r0 + R, kf + kk + t] = got[:min(R, n - r0)]
+    return out
+
+
+@pytest.mark.parametrize("n,m,offsets,tile", [
+    (5300, 5300, CFD2_OFFSETS, "v32"), (5300, 5300, CFD2_OFFSETS, "s1"),
+    (3000, 3000, [-2000, -700, 0, 300, 2100], "s4"),
+    (900, 700, [-5000, -1, 0, 1, 2, 3, 4, 5, 6, 800], "v16"),
+    (700, 1000, [-900, -10, -9, -8, -7, -6, 0, 990, 3000], "s32")],
+    ids=["cfd2-v32", "cfd2-s1", "isolated", "beyond-m-n>m", "beyond-m-n<m"])
+def test_k2_window_walk_matches_plain(n, m, offsets, tile):
+    """The window plan, walked as K2 reads it, gives sddmm_core_plain's
+    values: every (row, k) written once, holes and dead windows 0."""
+    X = RNG.standard_normal((n, 3))
+    Y = RNG.standard_normal((m, 3))
+    got = _k2_walk(offsets, X, Y, tile)
+    assert not np.isnan(got).any()
+    want = dia.sddmm_core_plain(offsets, torch.from_numpy(X),
+                                torch.from_numpy(Y)).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-12, atol=1e-12)
+
+
+def test_sddmm_core_with_and_without_geometry():
+    # on the CPU both take the plain version; the geometry's table is
+    # built and cached, and DiaSddmmCore passes its geometry
+    geo = dia.DiaGeometry(np.array([-30, -2, -1, 0, 4, 200]), 300, 260)
+    X = torch.from_numpy(RNG.standard_normal((300, 5)))
+    Y = torch.from_numpy(RNG.standard_normal((260, 5)))
+    offs = geo.offsets_on("cpu")
+    got = dia.sddmm_core(offs, X, Y, geo)
+    torch.testing.assert_close(got, dia.sddmm_core(offs, X, Y), rtol=0,
+                               atol=0)
+    torch.testing.assert_close(dia.DiaSddmmCore.apply(geo, X, Y), got,
+                               rtol=0, atol=0)
 
 
 def test_cores_match_dense():

@@ -45,24 +45,17 @@
 // (VW = 4) need p % 4 == 0 and B aligned to four elements; the wrapper
 // takes a scalar configuration otherwise, and narrow tiles with more rows
 // at small p.
-#include "tsgu_common.cuh"
+#include "dia_stage.cuh"
 
 namespace {
 
-// Stages of the copy pipeline: the next window loads while this one
-// computes.  A third stage cost more in blocks per SM than it hid.
-constexpr int STAGES = 2;
+using tsgu::plan_bytes;
+using tsgu::round16;
+using tsgu::STAGES;
 
-__host__ __device__ inline int64_t round16(int64_t bytes) {
-  return (bytes + 15) / 16 * 16;
-}
-
-// Bytes of the window plan in shared memory, and of one stage's B window
-// and grid columns (one grid row more than a window holds: a run's last
-// step reads the next row ahead and discards it).
-__host__ __device__ inline int64_t plan_bytes(int64_t W, int64_t NR) {
-  return round16((5 * W + 1 + 3 * NR) * (int64_t)sizeof(int));
-}
+// Bytes of one stage's B window and grid columns (one grid row more than
+// a window holds: a run's last step reads the next row ahead and discards
+// it).
 template <typename T>
 __host__ __device__ inline int64_t b_bytes(int R, int PT, int64_t span) {
   return round16((R + span) * PT * (int64_t)sizeof(T));
@@ -70,62 +63,6 @@ __host__ __device__ inline int64_t b_bytes(int R, int PT, int64_t span) {
 template <typename T>
 __host__ __device__ inline int64_t g_bytes(int R, int64_t count) {
   return round16((count + 1) * (R + 4) * (int64_t)sizeof(T));
-}
-
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-// Asynchronous copy of BYTES (4, 8 or 16) from global to shared memory;
-// zero-filled when !ok (the source must still be a valid address).
-template <int BYTES>
-__device__ __forceinline__ void cp_async(void* dst, const void* src,
-                                         bool ok) {
-  const int n = ok ? BYTES : 0;
-  if constexpr (BYTES == 16) {
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                     smem_addr(dst)),
-                 "l"(src), "r"(n));
-  } else {
-    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(
-                     smem_addr(dst)),
-                 "l"(src), "n"(BYTES), "r"(n));
-  }
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// Stage VW consecutive elements (0 when !ok).  One bfloat16 is below
-// cp.async's 4-byte minimum: it is copied by a plain load and store.
-template <typename T, int VW>
-__device__ __forceinline__ void stage(T* dst, const T* src, bool ok) {
-  constexpr int BYTES = VW * (int)sizeof(T);
-  if constexpr (BYTES == 2) {
-    *reinterpret_cast<unsigned short*>(dst) =
-        ok ? *reinterpret_cast<const unsigned short*>(src) : 0;
-  } else if constexpr (BYTES == 32) {
-    cp_async<16>(dst, src, ok);
-    cp_async<16>(reinterpret_cast<char*>(dst) + 16,
-                 reinterpret_cast<const char*>(src) + 16, ok);
-  } else {
-    cp_async<BYTES>(dst, src, ok);
-  }
-}
-
-template <int VW, typename T, typename A>
-__device__ __forceinline__ void load_b(const T* p, A (&v)[VW]) {
-  if constexpr (VW == 4) {
-    tsgu::load4(p, v);
-  } else {
-    v[0] = tsgu::load_acc(p);
-  }
 }
 
 // The grid values of a thread's RT rows at one offset (stored
@@ -175,10 +112,7 @@ dia_spmm_kernel(const T* __restrict__ grid, const T* __restrict__ B,
   int* const s_win = reinterpret_cast<int*>(smem);
   int* const s_first = s_win + 4 * W;
   int* const s_run = s_first + W + 1;
-  for (int i = tid; i < 5 * W + 1 + 3 * NR; i += NT) {
-    const int64_t v = wplan[i];
-    s_win[i] = i < 4 * W && i % 4 == 3 ? (int)(v - wplan[i - 1]) : (int)v;
-  }
+  tsgu::load_plan(wplan, W, NR, s_win, tid, NT);
   const int b_elems = (int)(b_bytes<T>(R, PT, span_max) / sizeof(T));
   const int stage_elems = b_elems + (int)(g_bytes<T>(R, count_max) /
                                           sizeof(T));
@@ -228,7 +162,7 @@ dia_spmm_kernel(const T* __restrict__ grid, const T* __restrict__ B,
       T* dst = Bs + rg0 * PT + c * VW;
       for (int row = rg0; row < rows; row += RG) {
         const bool ok = row >= row_lo && row < row_hi;
-        stage<T, VW>(dst, ok ? src : B, ok);
+        tsgu::stage<T, VW>(dst, ok ? src : B, ok);
         src += (int64_t)RG * p;
         dst += RG * PT;
       }
@@ -240,10 +174,11 @@ dia_spmm_kernel(const T* __restrict__ grid, const T* __restrict__ B,
       for (int e = tid; e < cnt * R; e += NT) {
         const int row = (int)(((float)e + 0.5f) * inv), kk = e - row * cnt;
         const bool ok = row < g_rows;
-        stage<T, 1>(Gs + kk * RP + row, ok ? g0 + row * K + kk : grid, ok);
+        tsgu::stage<T, 1>(Gs + kk * RP + row, ok ? g0 + row * K + kk : grid,
+                          ok);
       }
     }
-    cp_async_commit();
+    tsgu::cp_async_commit();
   };
 
   A acc[RT][VW];
@@ -256,7 +191,7 @@ dia_spmm_kernel(const T* __restrict__ grid, const T* __restrict__ B,
 #pragma unroll
   for (int j = 0; j < STAGES - 1; ++j) prefetch(j);
   for (int j = 0; j < jobs; ++j) {
-    cp_async_wait<STAGES - 2>();                      // job j is in
+    tsgu::cp_async_wait<STAGES - 2>();                // job j is in
     // every thread is past job j - 1: its stage takes job j + STAGES - 1
     __syncthreads();
     prefetch(j + STAGES - 1);
@@ -275,14 +210,16 @@ dia_spmm_kernel(const T* __restrict__ grid, const T* __restrict__ B,
         // before step t's products
         A bv[RS][VW], g[RT];
 #pragma unroll
-        for (int i = 0; i < RT; ++i) load_b<VW>(bp + i * PT, bv[i]);
+        for (int i = 0; i < RT; ++i)
+          tsgu::load_vec<VW>(bp + i * PT, bv[i]);
         load_g<RT>(gp, g);
         for (int t0 = 0; t0 < L; t0 += RS) {
 #pragma unroll
           for (int u = 0; u < RS; ++u) {
             if (t0 + u < L) {
               A gn[RT];
-              load_b<VW>(bp + (t0 + u + RT) * PT, bv[(u + RT) % RS]);
+              tsgu::load_vec<VW>(bp + (t0 + u + RT) * PT,
+                                 bv[(u + RT) % RS]);
               load_g<RT>(gp + (t0 + u + 1) * RP, gn);
 #pragma unroll
               for (int i = 0; i < RT; ++i)
@@ -324,37 +261,15 @@ int launch(const void* grid, const void* B, const void* wplan, void* out,
   const int64_t smem = plan_bytes(W, NR) +
                        STAGES * (b_bytes<T>(R, PT, span_max) +
                                  g_bytes<T>(R, count_max));
+  int64_t fit = 0;
+  static tsgu::Fit cache;
   auto kernel = dia_spmm_kernel<T, VW, LANES, RG, RT>;
-  // above 48 KB a kernel must opt in, once per device; the blocks that
-  // fit each SM at this shared memory, kept for the last size asked
-  static int64_t opted[64] = {}, fit_smem[64] = {};
-  static int fit[64] = {}, sms[64] = {};
-  int dev = 0;
-  cudaError_t rc = cudaGetDevice(&dev);
-  if (rc != cudaSuccess) return (int)rc;
-  if (dev >= 64) return (int)cudaErrorInvalidDevice;
-  if (smem > 48 * 1024 && opted[dev] < smem) {
-    rc = cudaFuncSetAttribute(kernel,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)smem);
-    if (rc != cudaSuccess) return (int)rc;
-    opted[dev] = smem;
-  }
-  if (fit_smem[dev] != smem || fit[dev] == 0) {
-    rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&fit[dev], kernel, NT,
-                                                       (size_t)smem);
-    if (rc == cudaSuccess)
-      rc = cudaDeviceGetAttribute(&sms[dev], cudaDevAttrMultiProcessorCount,
-                                  dev);
-    if (rc != cudaSuccess) return (int)rc;
-    if (fit[dev] == 0) return (int)cudaErrorInvalidConfiguration;
-    fit_smem[dev] = smem;
-  }
+  const int rc = tsgu::resident_blocks(kernel, cache, NT, smem, &fit);
+  if (rc != 0) return rc;
   // tiles are counted in int inside the kernel
   const int64_t tiles = (n + R - 1) / R * ((p + PT - 1) / PT);
   if (tiles > INT32_MAX) return (int)cudaErrorInvalidValue;
-  const int64_t blocks = tiles < (int64_t)fit[dev] * sms[dev]
-                             ? tiles : (int64_t)fit[dev] * sms[dev];
+  const int64_t blocks = tiles < fit ? tiles : fit;
   kernel<<<(unsigned)blocks, NT, (size_t)smem, (cudaStream_t)stream>>>(
       (const T*)grid, (const T*)B, (const int64_t*)wplan, (T*)out, n, m,
       (int)K, p, (int)W, (int)NR, (int)span_max, (int)count_max);

@@ -16,7 +16,8 @@ Three hand-written CUDA kernels carry the engine, each beside its plain
 PyTorch version:
 
 * :func:`spmm_core` (``csrc/dia_spmm.cu``) and :func:`sddmm_core`
-  (``csrc/dia_sddmm.cu``), here;
+  (``csrc/dia_sddmm.cu``), here, both on shared-memory windows of nearby
+  offsets (:func:`window_table`, ``csrc/dia_stage.cuh``);
 * :func:`~.window_gather.window_gather` (``csrc/gather.cu``), which moves
   values between CSR order and the grid.
 
@@ -75,6 +76,15 @@ SPMM_TILES = {"v32": (4, 8, 16, 8), "v16": (4, 4, 32, 8),
 WINDOW_B_BYTES = 40 * 1024   # shared memory of one stage's B window ...
 WINDOW_G_BYTES = 16 * 1024   # ... and of its grid columns: two stages fit
 WINDOW_MAX_COUNT = 32        # offsets of one window, at most
+# csrc/dia_sddmm.cu's tile configurations, (VW, PT, RG, RT, LT) as its C
+# entries instantiate them: a block of SDDMM_THREADS threads owns R = RG x
+# RT rows and stages PT columns of X and Y at a time, VW elements a copy;
+# a thread sums RT rows x LT consecutive offsets, so the window plan cuts
+# runs at LT and a window holds at most SDDMM_THREADS / RG runs.
+SDDMM_TILES = {"v32": (4, 32, 32, 4, 4), "v16": (4, 16, 32, 4, 4),
+               "s32": (1, 32, 32, 4, 4), "s4": (1, 4, 64, 4, 4),
+               "s1": (1, 1, 64, 4, 4)}
+SDDMM_THREADS = 256
 
 
 class DiaGeometry:
@@ -112,30 +122,33 @@ class DiaGeometry:
         return t
 
     def windows(self, rows_per_tile: int, cap: int,
-                max_count: int = WINDOW_MAX_COUNT) -> np.ndarray:
-        """The offset windows of K1's tiles of ``rows_per_tile`` rows
-        (:func:`window_table`), cached per argument."""
-        key = ("windows", rows_per_tile, cap, max_count)
+                max_count: int = WINDOW_MAX_COUNT,
+                seg: int = None) -> np.ndarray:
+        """The offset windows of a DIA kernel's tiles of ``rows_per_tile``
+        rows (:func:`window_table`), cached per argument."""
+        key = ("windows", rows_per_tile, cap, max_count, seg)
         t = self._dev.get(key)
         if t is None:
             t = self._dev[key] = window_table(self.offsets, rows_per_tile,
-                                              cap, max_count)
+                                              cap, max_count, seg)
         return t
 
     def windows_on(self, device, rows_per_tile: int, cap: int,
-                   max_count: int = WINDOW_MAX_COUNT) -> tuple:
-        """What K1 takes of :meth:`windows`, cached per device and
+                   max_count: int = WINDOW_MAX_COUNT,
+                   seg: int = None) -> tuple:
+        """What K1 and K2 take of :meth:`windows`, cached per device and
         argument: ``(plan, W, runs, span_max, count_max)``, ``plan`` the
-        int64 :func:`window_plan` on ``device``, ``W`` its windows,
-        ``runs`` its runs, and the largest window span and count."""
-        key = ("windows", rows_per_tile, cap, max_count, device)
+        int64 :func:`window_plan` on ``device`` (runs cut at ``seg``),
+        ``W`` its windows, ``runs`` its runs, and the largest window span
+        and count."""
+        key = ("windows", rows_per_tile, cap, max_count, seg, device)
         t = self._dev.get(key)
         if t is None:
-            table = self.windows(rows_per_tile, cap, max_count)
+            table = self.windows(rows_per_tile, cap, max_count, seg)
             if table.size and np.abs(table[:, 2:]).max() >= 2**30:
-                raise ValueError("dia spmm_core: takes offsets below 2**30 "
-                                 "in size")
-            plan = window_plan(self.offsets, table)
+                raise ValueError("dia kernels: take offsets below 2**30 in "
+                                 "size")
+            plan = window_plan(self.offsets, table, seg)
             W = len(table)
             t = self._dev[key] = (
                 torch.from_numpy(plan).to(device), W,
@@ -163,42 +176,52 @@ class DiaGeometry:
 
 
 def window_table(offsets, rows_per_tile: int, cap: int,
-                 max_count: int = WINDOW_MAX_COUNT) -> np.ndarray:
-    """Group sorted ``offsets`` into the windows that K1 stages in shared
-    memory: ``(W, 4)`` int64 rows ``(k_first, count, off_lo, off_hi)``.
+                 max_count: int = WINDOW_MAX_COUNT,
+                 seg: int = None) -> np.ndarray:
+    """Group sorted ``offsets`` into the windows that K1 and K2 stage in
+    shared memory: ``(W, 4)`` int64 rows ``(k_first, count, off_lo,
+    off_hi)``.
 
     Greedy from the first offset: the next one joins the current window
     when its gap to the previous offset is below ``rows_per_tile`` (the
     tile's B rows then overlap), the window's span ``off_hi - off_lo``
-    stays within ``cap`` and it holds at most ``max_count`` offsets.
-    Offsets farther apart get a window each, which stages the same B rows
-    as reading them one offset at a time.
+    stays within ``cap`` and it holds at most ``max_count`` offsets, or
+    with ``seg`` at most ``max_count`` runs of consecutive offsets, each
+    cut at ``seg`` offsets (:func:`window_plan`'s runs).  Offsets farther
+    apart get a window each, which stages the same B rows as reading them
+    one offset at a time.
     """
-    wins = []
+    wins, units, run = [], 0, 0
     for k, off in enumerate(int(o) for o in offsets):
         if wins:
             w = wins[-1]
+            grow = seg is not None and off == w[3] + 1 and run < seg
             if (off - w[3] < rows_per_tile and off - w[2] <= cap
-                    and w[1] < max_count):
+                    and (grow or units < max_count)):
                 w[1] += 1
                 w[3] = off
+                run = run + 1 if grow else 1
+                units += 0 if grow else 1
                 continue
         wins.append([k, 1, off, off])
+        units = run = 1
     return np.array(wins, np.int64).reshape(-1, 4)
 
 
-def window_plan(offsets, table: np.ndarray) -> np.ndarray:
-    """What K1 reads of a window table, flat int64: the ``(W, 4)`` rows,
-    then ``W + 1`` run starts, then the runs of consecutive offsets in
-    each window as ``(k - k_first, off_k - off_lo, length)``, window by
-    window (window ``w``'s runs are ``first[w]`` to ``first[w + 1]``)."""
+def window_plan(offsets, table: np.ndarray, seg: int = None) -> np.ndarray:
+    """What K1 and K2 read of a window table, flat int64: the ``(W, 4)``
+    rows, then ``W + 1`` run starts, then the runs of consecutive offsets
+    in each window, each cut at ``seg`` offsets when ``seg`` is given, as
+    ``(k - k_first, off_k - off_lo, length)``, window by window (window
+    ``w``'s runs are ``first[w]`` to ``first[w + 1]``)."""
     offs = np.asarray(offsets, np.int64)
     first, runs = [0], []
     for kf, cnt, lo, _ in table.tolist():
         k = kf
         while k < kf + cnt:
             L = 1
-            while k + L < kf + cnt and offs[k + L] == offs[k + L - 1] + 1:
+            while (k + L < kf + cnt and offs[k + L] == offs[k + L - 1] + 1
+                   and (seg is None or L < seg)):
                 L += 1
             runs.append((k - kf, offs[k] - lo, L))
             k += L
@@ -495,13 +518,42 @@ def sddmm_core_plain(offsets, X: torch.Tensor, Y: torch.Tensor):
     return torch.stack(cols, dim=1).to(X.dtype)
 
 
-def sddmm_core(offsets: torch.Tensor, X: torch.Tensor,
-               Y: torch.Tensor) -> torch.Tensor:
+def sddmm_tile(X: torch.Tensor, Y: torch.Tensor):
+    """K2's tile configuration for X (n, p) and Y (m, p): ``(name, rows,
+    cols, cap, max_count, seg)``, the window ``cap`` sized so that a
+    stage's Y window fits :data:`WINDOW_B_BYTES`, ``max_count`` runs of at
+    most ``seg`` offsets a window (:data:`SDDMM_TILES`)."""
+    es, p = X.element_size(), X.shape[1]
+    align = min(16, 4 * es)
+    if p % 4 == 0 and X.data_ptr() % align == 0 \
+            and Y.data_ptr() % align == 0:
+        name = "v32" if p >= 32 and es <= 4 else "v16"
+    else:
+        name = "s1" if p == 1 else "s4" if p < 32 else "s32"
+    return _sddmm_tile(name, es)
+
+
+@lru_cache(maxsize=None)
+def _sddmm_tile(name: str, es: int):
+    vw, cols, rg, rt, lt = SDDMM_TILES[name]
+    rows = rg * rt
+    stride = 1 if cols == 1 else cols + vw       # csrc/dia_sddmm.cu Tile::S
+    cap = max(1, WINDOW_B_BYTES // (stride * es) - rows - (lt - 1))
+    return name, rows, cols, cap, SDDMM_THREADS // rg, lt
+
+
+def sddmm_core(offsets: torch.Tensor, X: torch.Tensor, Y: torch.Tensor,
+               geo: DiaGeometry = None) -> torch.Tensor:
     """``out[r, k] = dot(X[r, :], Y[r + off_k, :])`` (0 where ``r + off_k``
-    is out of range): X (n, p), Y (m, p), int64 offsets (K,) -> (n, K).
+    is out of range): X (n, p), Y (m, p), int64 sorted offsets (K,) ->
+    (n, K).
 
     CPU tensors take :func:`sddmm_core_plain`; CUDA tensors launch
-    ``csrc/dia_sddmm.cu`` and raise on what it does not take.
+    ``csrc/dia_sddmm.cu`` and raise on what it does not take.  The kernel
+    reads the offsets' windows (:func:`window_plan` of
+    :func:`window_table`, for the tile :func:`sddmm_tile` picks) from
+    ``geo``, cached there (``geo.offsets`` must be ``offsets``), or from
+    the offsets, copied to the host, when ``geo`` is None.
     """
     if all(t.device.type == "cpu" for t in (offsets, X, Y)):
         return sddmm_core_plain(offsets, X, Y)
@@ -512,13 +564,21 @@ def sddmm_core(offsets: torch.Tensor, X: torch.Tensor,
                          f"offsets (K,), got {tuple(X.shape)}, "
                          f"{tuple(Y.shape)}, {tuple(offsets.shape)}")
     (n, p), m, K = X.shape, Y.shape[0], offsets.shape[0]
-    if K > MAX_DIAGS:
-        raise ValueError(f"dia sddmm_core: takes K <= {MAX_DIAGS}, got {K}")
+    tile, rows, cols, cap, max_count, seg = sddmm_tile(X, Y)
+    jobs = -(-n // rows) * K * max(1, -(-p // cols))
+    if K > MAX_DIAGS or jobs >= 2**31:
+        raise ValueError(f"dia sddmm_core: takes K <= {MAX_DIAGS} and fewer "
+                         f"than 2**31 jobs of {rows} rows x {cols} columns, "
+                         f"got K={K}, {jobs} jobs")
     out = torch.empty((n, K), dtype=X.dtype, device=X.device)
     if out.numel() == 0:
         return out
-    _build.launch("dia_sddmm", f"tsgu_dia_sddmm_{suffix}", X, Y, offsets,
-                  out, n, m, K, p)
+    if geo is None:
+        geo = DiaGeometry(np.array(offsets.tolist(), np.int64), n, m)
+    wplan, W, NR, span_max, _ = geo.windows_on(X.device, rows, cap,
+                                               max_count, seg)
+    _build.launch("dia_sddmm", f"tsgu_dia_sddmm_{suffix}_{tile}", X, Y,
+                  wplan, out, n, m, K, p, W, NR, span_max)
     sddmm_core.launches += 1
     return out
 
@@ -564,7 +624,7 @@ class DiaSddmmCore(torch.autograd.Function):
         ctx.geo = geo
         ctx.save_for_backward(X, Y)
         return sddmm_core(geo.offsets_on(X.device), X.contiguous(),
-                          Y.contiguous())
+                          Y.contiguous(), geo)
 
     @staticmethod
     def backward(ctx, ct):
