@@ -27,9 +27,10 @@ last line:
    equal, after printing its window tables (``k2_windows``); the chunk
    kernels on a uniform random pattern of
    cfd2 size (3,087,898 entries; SpMM and SDDMM at p = 128, SpMV at
-   p = 1, the SpMM over the transpose plan too), each run twice and
-   bitwise equal, and at a small size with empty rows, a row of 5,000
-   entries, p = 3 and n != m;
+   p = 1, the SpMM over the transpose plan too; the SpMM, K6, also at
+   p = 64, 32, 16 and 130, with B and X unaligned, and on the hybrid85
+   residual's plan), each run twice and bitwise equal, and at a small
+   size with empty rows, a row of 5,000 entries, p = 3 and n != m;
 3. runs ``sparse_mm`` forward and backward through the public entry
    point on that stencil, on a hybrid pattern at 85 % DIA coverage, at
    p = 16, and on the random pattern at p = 128 and p = 1, and public
@@ -37,8 +38,8 @@ last line:
    gradients against the generic ``backend="xla"`` path on the card and
    a small case against a dense product, and checks that each kernel of
    each path launched during its run (counters set to 0 just before,
-   read just after; K1's and K2's plain versions must not run on a path
-   that launches their kernel);
+   read just after; K1's, K2's, K6's and K13's plain versions must not
+   run on a path that launches their kernel);
    ``sparse_triangular_solve`` forward and backward on two patterns:
    *tri-stencil*, the stencil's lower triangle (13 offsets, diagonally
    dominant) at p = 128 and p = 2, its upper mirror and its transposed
@@ -81,12 +82,15 @@ last line:
    launch at p = 128, 16 and 1 and for Aᵀ G (``k1_times``: event and
    profiled device time, bound, plain version, ``torch.sparse.mm``) and
    K2 at p = 128, 16, 2 and 1 (``k2_times``, beside
-   ``torch.sparse.sampled_addmm``), and
+   ``torch.sparse.sampled_addmm``), K6 at p = 128, 64, 32, 16 and 3 on
+   the random pattern, for Aᵀ G and on the hybrid85 residual (``k6_times``,
+   beside ``torch.sparse.mm``, with a probe of B's read rows folded into
+   15.8 MB), and
    times each kernel, its plain version and one PyTorch library call that
    computes the same function, with CUDA events, and prints them as a
-   ``{"kernels": [...]}`` line (twelve rows, K13's from phase 3d, K1's
-   and K2's with ``per_launch``, K3's with its and ``index_select``'s
-   profiled device time);
+   ``{"kernels": [...]}`` line (twelve rows, K13's from phase 3d, K1's,
+   K2's and K6's with ``per_launch``, K3's with its and
+   ``index_select``'s profiled device time);
 5. prints ``{"ok": true, "device": {...}}`` as the last line.
 
 Without a CUDA device it exits 1 and prints no result.
@@ -95,10 +99,13 @@ Without a CUDA device it exits 1 and prints no result.
 times of the steps that launch it (stencil, hybrid85, stencil p=16,
 sharded-dia fwd+bwd; wall and profiled device time) as one
 ``k1_compare`` line; ``--k2`` prints K2's ``k2_times`` and the same
-steps with tri-stencil p = 2 fwd+bwd as one ``k2_compare`` line.  Copied
-into an unpacked checkout of another commit (``git archive``) and run
-from there, either measures that commit's kernel the same way, so two
-commits compare on one card in turns.
+steps with tri-stencil p = 2 fwd+bwd as one ``k2_compare`` line;
+``--k6`` prints K6's ``k6_times``, K13's time whole and per slab of 4,
+and the steps that launch K6 or K13 (random p=128, hybrid85,
+sharded-chunk at world size 1, public ``sddmm`` on the random pattern)
+as one ``k6_compare`` line.  Copied into an unpacked checkout of another
+commit (``git archive``) and run from there, each measures that commit's
+kernel the same way, so two commits compare on one card in turns.
 """
 
 import contextlib
@@ -130,10 +137,12 @@ FUSED = ("chunk_bwd_pass1", "chunk_bwd_pass2")
 GRAD_TOL = (1e-4, 1e-6)  # (rtol, atol): LSE gradients, the JAX tests' own
 FAST_REL = 1e-2  # |gradB - split| / |split| with V stored in bfloat16
 ROUTES = []             # triangular-solve routes taken, in order
-PLAIN = {"dia_spmm_plain": 0,    # K1's and K2's plain versions called
-         "dia_sddmm_plain": 0}   # by their wrappers
+PLAIN = {"dia_spmm_plain": 0,    # K1's, K2's, K6's and K13's plain
+         "dia_sddmm_plain": 0,   # versions called by their wrappers
+         "chunk_spmm_plain": 0, "chunk_spmm_slab_plain": 0}
 K1_PS = (128, 16, 1)    # K1's widths on the main path: stencil, p=16, matvec
 K2_PS = (128, 16, 2, 1)  # K2's: stencil, p=16, tri-stencil p=2, matvec
+K6_PS = (128, 64, 32, 16, 3)  # K6's widths timed on the random pattern
 
 
 def smi_line() -> str:
@@ -275,18 +284,22 @@ def track_routes():
 
 
 def count_plain():
-    """Count calls of K1's and K2's plain versions made through the
-    kernels module (their wrappers' CPU paths) in ``PLAIN``: a step on
-    the card must make none."""
-    from torchsparsegradutils_tpu_torch.kernels import dia
-    for key, name in (("dia_spmm_plain", "spmm_core_plain"),
-                      ("dia_sddmm_plain", "sddmm_core_plain")):
-        plain = getattr(dia, name)
+    """Count calls of K1's, K2's, K6's and K13's plain versions made
+    through their kernels modules (their wrappers' CPU paths) in
+    ``PLAIN``: a step on the card must make none."""
+    from torchsparsegradutils_tpu_torch.kernels import chunk_spmm, dia
+    for mod, key, name in ((dia, "dia_spmm_plain", "spmm_core_plain"),
+                           (dia, "dia_sddmm_plain", "sddmm_core_plain"),
+                           (chunk_spmm, "chunk_spmm_plain",
+                            "chunk_spmm_plain"),
+                           (chunk_spmm, "chunk_spmm_slab_plain",
+                            "chunk_spmm_slab_plain")):
+        plain = getattr(mod, name)
 
         def counted(*a, _plain=plain, _key=key, **k):
             PLAIN[_key] += 1
             return _plain(*a, **k)
-        setattr(dia, name, counted)
+        setattr(mod, name, counted)
 
 
 def zero_counters():
@@ -310,6 +323,8 @@ def read_counters(label, expect, forbid=()):
     forbid = tuple(forbid) + tuple(f"{k}_plain" for k in ("dia_spmm",
                                                           "dia_sddmm")
                                    if k in expect)
+    if {"chunk_spmm", "chunk_spmm_slab"} & set(expect):
+        forbid += ("chunk_spmm_plain", "chunk_spmm_slab_plain")
     wrong = [k for k in forbid if launches[k] != 0]
     if wrong:
         raise AssertionError(f"{label}: kernels {wrong} launched off their "
@@ -586,6 +601,39 @@ def check_chunk_kernels(label, plan, vals, B, X, dt_name):
         e = close(f"{label} {name} {what} (repeats bitwise)", got,
                   plain(*args), dt_name)
         err[name] = max(err.get(name, 0.0), e)
+    return err
+
+
+def check_k6_cases(plan, rplan, vals, rvals, B, X, dt_name, gen):
+    """K6 (A @ B and Aᵀ X) against its plain version beyond
+    :func:`check_chunk_kernels`'s p = 128, each launched twice and bitwise
+    equal: at p = 64, 32, 16 and 130 (past a slab and a 128-column tile),
+    with B, then X, unaligned at p = 128, and on the hybrid85 residual's
+    plan (``rplan``, values ``rvals``) at p = 128.  Returns the largest
+    error."""
+    import torch
+    from torchsparsegradutils_tpu_torch.kernels.chunk_spmm import (
+        chunk_spmm, chunk_spmm_plain)
+    cases = [(f"p={p}", plan, vals, B[:, :p].contiguous(),
+              X[:, :p].contiguous()) for p in (64, 32, 16)]
+    wide = torch.cat([B, B[:, :2]], 1), torch.cat([X, X[:, :2]], 1)
+    cases += [("p=130", plan, vals, *wide),
+              ("B, X unaligned", plan, vals, unaligned(B, 1, gen),
+               unaligned(X, 1, gen)),
+              ("hybrid85 residual", rplan, rvals, B, X)]
+    err = 0.0
+    for what, pl, v, b, x in cases:
+        d, dt = pl.maps(b.device), pl.T.maps(b.device)
+        for side, args in (("A@B", (d["indptr"], d["cols"], v, b)),
+                           ("A^T X", (dt["indptr"], dt["cols"],
+                                      pl.to_T(v), x))):
+            got, again = chunk_spmm(*args), chunk_spmm(*args)
+            if not torch.equal(got, again):
+                raise AssertionError(f"chunk_spmm {what} {side} "
+                                     f"[{dt_name}]: two launches differ")
+            err = max(err, close(f"chunk_spmm {what} {side} (repeats "
+                                 "bitwise)", got, chunk_spmm_plain(*args),
+                                 dt_name))
     return err
 
 
@@ -959,25 +1007,129 @@ def k2_times(A, plan, B, G, dev):
     return out
 
 
+def k6_times(R, cplan, H, B, G, dev):
+    """K6's time per launch (CUDA events, and the kernel's profiled device
+    time) for A @ B on the random pattern at each p of ``K6_PS`` (p = 3
+    on the scalar path), for
+    Aᵀ G over ``plan.T`` and on the hybrid85 residual at p = 128, each
+    beside its bound, its plain version and ``torch.sparse.mm`` on the
+    same CSR; as a probe of the L2, A @ B at p = 128 with every column
+    folded into B's first N / 4 rows (15.8 MB of B read, which the L2
+    holds; no plain or library time, as rows may repeat a column); and,
+    where the checkout picks K6's column slab on the host
+    (``slab_bytes``), the profiled device time of A @ B at p = 128 on the
+    random pattern and on the residual with slabs of one, two and four
+    128-byte lines (``slab_probe``)."""
+    import numpy as np
+    import torch
+    from torchsparsegradutils_tpu_torch.kernels import chunk_spmm as cs
+    from torchsparsegradutils_tpu_torch.kernels import dia
+    chunk_spmm, chunk_spmm_plain = cs.chunk_spmm, cs.chunk_spmm_plain
+    es = 4
+    hplan = dia.build_dia_plan(H.row_sa(), H.col_sa(), N, N)
+    rp = dia._resid_chunk_plan(hplan)
+    hv = H.values[torch.from_numpy(hplan.resid_sel).to(dev)]
+    d, dt, dr = cplan.maps(dev), cplan.T.maps(dev), rp.maps(dev)
+    fold = N // 4
+    cases = [(f"p{p}", d, d["cols"], R.values, B[:, :p].contiguous(),
+              cplan.cols) for p in K6_PS]
+    cases += [("transpose_p128", dt, dt["cols"], R.values[dt["perm"]], G,
+               cplan.T.cols),
+              ("resid_p128", dr, dr["cols"], hv, B, rp.cols),
+              ("p128_l2_resident", d, d["cols"] % fold, R.values, B,
+               cplan.cols % fold)]
+    out = {}
+    for label, maps, cols, vals, X, host_cols in cases:
+        ip = maps["indptr"]
+        n, nnz, p = ip.shape[0] - 1, cols.shape[0], X.shape[1]
+        ucols = len(np.unique(host_cols))          # B rows the launch reads
+        b_ms, b_by = bound(nnz * (es + 8) + (n + 1) * 8
+                           + (ucols + n) * p * es, 2 * nnz * p)
+        row = {"entries": nnz, "ms": time_ms(
+                   lambda: chunk_spmm(ip, cols, vals, X)),
+               "device_ms": device_ms(lambda: chunk_spmm(ip, cols, vals, X),
+                                      "chunk_spmm_kernel"),
+               "bound_ms": b_ms, "bound_by": b_by}
+        if label != "p128_l2_resident":
+            csr = torch.sparse_csr_tensor(ip, cols, vals, (n, X.shape[0]))
+            row["plain_ms"] = time_ms(
+                lambda: chunk_spmm_plain(ip, cols, vals, X), reps=5)
+            row["library_ms"] = time_ms(lambda: torch.sparse.mm(csr, X))
+        out[label] = row
+    if hasattr(cs, "slab_bytes"):
+        saved = cs.SLAB_BYTES, cs.SHORT_SLAB_BYTES
+        probe = {}
+        try:
+            for label, maps, cols, vals in (
+                    ("random_p128", d, d["cols"], R.values),
+                    ("resid_p128", dr, dr["cols"], hv)):
+                for slab in (128, 256, 512):
+                    cs.SLAB_BYTES = cs.SHORT_SLAB_BYTES = slab
+                    probe.setdefault(label, {})[slab] = device_ms(
+                        lambda: chunk_spmm(maps["indptr"], cols, vals, B),
+                        "chunk_spmm_kernel")
+        finally:
+            cs.SLAB_BYTES, cs.SHORT_SLAB_BYTES = saved
+        out["slab_probe"] = probe
+    return out
+
+
+def k13_times(R, plans, B, dev):
+    """K13's time per slab of each sharded chunk plan of ``plans`` (CUDA
+    events, and the kernel's profiled device time) beside its bound, its
+    plain version and ``torch.sparse.mm`` on the slab's CSR."""
+    import torch
+    from torchsparsegradutils_tpu_torch.kernels import chunk_spmm as cs
+    m, es = R.shape[1], 4
+    times = {}
+    for plan in plans:
+        S, rps = plan.n_shards, plan.rows_per_shard
+        pd = plan.maps(dev)
+        for s in range(S):
+            lo, hi = int(plan.bounds[s]), int(plan.bounds[s + 1])
+            sp = plan.slab_plan(s)
+            csr = torch.sparse_csr_tensor(
+                torch.from_numpy(sp.indptr).to(dev),
+                torch.from_numpy(sp.cols).to(dev), R.values[lo:hi],
+                (rps, m))
+            args = (pd["indptr"], pd["cols"], R.values, B, s * rps, rps)
+            b_ms, b_by = slab_bound(plan, s, B.shape[1], es)
+            times[f"S{S}_slab{s}"] = {
+                "entries": hi - lo,
+                "ms": time_ms(lambda: cs.chunk_spmm_slab(*args)),
+                "device_ms": device_ms(lambda: cs.chunk_spmm_slab(*args),
+                                       "chunk_spmm_slab_kernel"),
+                "plain_ms": time_ms(lambda: cs.chunk_spmm_slab_plain(*args)),
+                "library_ms": time_ms(lambda: torch.sparse.mm(csr, B)),
+                "bound_ms": b_ms, "bound_by": b_by}
+    return times
+
+
 def compare(which) -> int:
-    """``--k1`` / ``--k2``: that kernel's times (:func:`k1_times`,
-    :func:`k2_times`) and the times of the steps that launch it (stencil,
-    hybrid85, stencil p=16, sharded-dia fwd+bwd; for K2 also tri-stencil
-    p = 2 fwd+bwd), wall and profiled device time, nothing else: run in
-    turns from two checkouts to compare them on one card.  Prints one
-    JSON line."""
+    """``--k1`` / ``--k2`` / ``--k6``: that kernel's times (:func:`k1_times`,
+    :func:`k2_times`; for K6 :func:`k6_times` and K13's
+    :func:`k13_times`, whole and per slab of 4) and the times of the steps
+    that launch it, wall and profiled device time, nothing else: for K1
+    and K2 stencil, hybrid85, stencil p=16 and sharded-dia fwd+bwd (K2
+    also tri-stencil p = 2); for K6 random p=128, hybrid85,
+    sharded-chunk at world size 1 and public ``sddmm`` on the random
+    pattern.  Run in turns from two checkouts to compare them on one
+    card.  Prints one JSON line."""
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
-    from torchsparsegradutils_tpu_torch import (sparse_mm,
+    from torchsparsegradutils_tpu_torch import (sddmm, sparse_mm,
                                                 sparse_triangular_solve)
     from torchsparsegradutils_tpu_torch.kernels import _build
+    from torchsparsegradutils_tpu_torch.kernels.chunk_spmm import (
+        build_chunk_plan)
     from torchsparsegradutils_tpu_torch.kernels.dia import (build_dia_plan,
                                                             values_to_grid)
-    from torchsparsegradutils_tpu_torch.parallel import sharded_dia_spmm
+    from torchsparsegradutils_tpu_torch.parallel import (
+        build_sharded_chunk_plan, sharded_chunk_spmm, sharded_dia_spmm)
     from torchsparsegradutils_tpu_torch.utils.random_sparse import (
-        hybrid_sparse, stencil_sparse)
+        hybrid_sparse, rand_sparse, stencil_sparse)
     dev = torch.device("cuda", 0)
     card = smi_line()
     _build.libraries()
@@ -988,7 +1140,15 @@ def compare(which) -> int:
     G = torch.randn(N, P, generator=gen).to(dev)
     H = hybrid_sparse((N, N), STENCIL_OFFSETS, NNZ_HYBRID, dia_coverage=0.85,
                       generator=gen, device=dev)
-    if which == "k1":
+    if which == "k6":
+        R = rand_sparse((N, N), NNZ_RANDOM, layout="csr", generator=gen,
+                        device=dev)
+        cplan = build_chunk_plan(R.row_sa(), R.col_sa(), N, N)
+        plan1 = build_sharded_chunk_plan(R, 1)
+        res = {"k6": k6_times(R, cplan, H, B, G, dev),
+               "k13": k13_times(R, (plan1, build_sharded_chunk_plan(R, 4)),
+                                B, dev)}
+    elif which == "k1":
         res = {"k1": k1_times(A, plan, values_to_grid(plan, A.values), B, G,
                               dev)}
     else:
@@ -1000,10 +1160,19 @@ def compare(which) -> int:
                             G[:, :p].contiguous())
     steps = {}
     with one_rank_group(dev):
-        f = sharded_dia_spmm(A)
-        todo = [("stencil", step(A, P)), ("hybrid85", step(H, P)),
-                ("stencil_p16", step(A, 16)),
-                ("sharded_dia", chained_step(f, A.values, B, G))]
+        if which == "k6":
+            C = torch.randn(R.nnz, generator=gen).to(dev)
+            todo = [("random", step(R, P)), ("hybrid85", step(H, P)),
+                    ("sharded_chunk", chained_step(
+                        lambda v, b: sharded_chunk_spmm(plan1, v, b),
+                        R.values, B, G)),
+                    ("random_sddmm", chained_step(
+                        lambda x, y: sddmm(R, x, y).values, G, B, C))]
+        else:
+            f = sharded_dia_spmm(A)
+            todo = [("stencil", step(A, P)), ("hybrid85", step(H, P)),
+                    ("stencil_p16", step(A, 16)),
+                    ("sharded_dia", chained_step(f, A.values, B, G))]
         if which == "k2":
             T = stencil_sparse((N, N), TRI_OFFSETS, well_conditioned=True,
                                generator=gen, device=dev)
@@ -1038,7 +1207,7 @@ def parallel_checks(R, A, B, G, gen, dev, card):
     from torchsparsegradutils_tpu_torch.parallel.sharding import shard_spmm
 
     # ---- K13 against its plain version ------------------------------------
-    n, m = R.shape
+    n = R.shape[0]
     plan4 = build_sharded_chunk_plan(R, 4)
     plan1 = build_sharded_chunk_plan(R, 1)
     rps4 = plan4.rows_per_shard
@@ -1177,26 +1346,7 @@ def parallel_checks(R, A, B, G, gen, dev, card):
                              f"{losses}")
 
     # ---- timing -------------------------------------------------------------
-    es = 4
-    times = {}
-    for S, plan in ((1, plan1), (4, plan4)):
-        pd = plan.maps(dev)
-        for s in range(S):
-            rps = plan.rows_per_shard
-            lo, hi = int(plan.bounds[s]), int(plan.bounds[s + 1])
-            sp = plan.slab_plan(s)
-            csr = torch.sparse_csr_tensor(
-                torch.from_numpy(sp.indptr).to(dev),
-                torch.from_numpy(sp.cols).to(dev), R.values[lo:hi],
-                (rps, m))
-            args = (pd["indptr"], pd["cols"], R.values, B, s * rps, rps)
-            b_ms, b_by = slab_bound(plan, s, B.shape[1], es)
-            times[f"S{S}_slab{s}"] = {
-                "entries": hi - lo,
-                "ms": time_ms(lambda: cs.chunk_spmm_slab(*args)),
-                "plain_ms": time_ms(lambda: cs.chunk_spmm_slab_plain(*args)),
-                "library_ms": time_ms(lambda: torch.sparse.mm(csr, B)),
-                "bound_ms": b_ms, "bound_by": b_by}
+    times = k13_times(R, (plan1, plan4), B, dev)
     print(json.dumps({"k13_slabs": times, "card": card}))
 
     steps = {
@@ -1323,6 +1473,11 @@ def main() -> int:
           f"{int(np.diff(s_indptr).max())}, built in "
           f"{time.perf_counter() - t1:.1f} s")
     lplan, lvals = lse_awkward_plan()
+    H = hybrid_sparse((N, N), STENCIL_OFFSETS, NNZ_HYBRID, dia_coverage=0.85,
+                      generator=gen, device=dev)
+    hplan = build_dia_plan(H.row_sa(), H.col_sa(), N, N)
+    rplan = dia._resid_chunk_plan(hplan)
+    rvals = H.values[torch.from_numpy(hplan.resid_sel).to(dev)]
     e1 = check_k1(A, plan, grid, B, G, gen, dev)
     e3 = check_k2(A, plan, tplan, B, G, gen, dev)
     err = {}
@@ -1338,6 +1493,8 @@ def main() -> int:
             print(f"  gather {what} [{name}]: exact")
         ec = check_chunk_kernels("random cfd2", cplan, R.values.to(dt), b, gg,
                                  name)
+        ec["chunk_spmm"] = max(ec["chunk_spmm"], check_k6_cases(
+            cplan, rplan, R.values.to(dt), rvals.to(dt), b, gg, name, gen))
         sv = torch.randn(small.nnz, generator=gen).to(dev, dt)
         sB = torch.randn(small.m, 3, generator=gen).to(dev, dt)
         sX = torch.randn(small.n, 3, generator=gen).to(dev, dt)
@@ -1394,8 +1551,6 @@ def main() -> int:
     close("small random vs dense f64", sparse_mm(small_r, Bs[:400]),
           small_r.todense().double() @ Bs[:400].double(), "float32")
     launches = drive("stencil p=128", A, B, G, DIA_KERNELS)
-    H = hybrid_sparse((N, N), STENCIL_OFFSETS, NNZ_HYBRID, dia_coverage=0.85,
-                      generator=gen, device=dev)
     drive("hybrid85 p=128", H, B, G,
           DIA_KERNELS + ("chunk_spmm", "chunk_sddmm"))
     B16, G16 = B[:, :16].contiguous(), G[:, :16].contiguous()
@@ -1654,6 +1809,8 @@ def main() -> int:
     print(json.dumps({"k1_times": k1, "card": card}))
     k2 = k2_times(A, plan, B, G, dev)
     print(json.dumps({"k2_times": k2, "card": card}))
+    k6 = k6_times(R, cplan, H, B, G, dev)
+    print(json.dumps({"k6_times": k6, "card": card}))
     es = 4
     n, m, K = N, N, plan.K
     cells = valid_cells(plan.offsets.tolist(), n, m)
@@ -1805,6 +1962,8 @@ def main() -> int:
             row["per_launch"] = k1
         if name == "dia_sddmm":
             row["per_launch"] = k2
+        if name == "chunk_spmm":
+            row["per_launch"] = k6
         if name == "gather":
             # K3's event time is near the host's launch rate: the profiled
             # kernel time of K3 and of the library call
@@ -1822,7 +1981,8 @@ def main() -> int:
 
 if __name__ == "__main__":
     t0 = time.perf_counter()
-    mode = {"--k1": "k1", "--k2": "k2"}.get(" ".join(sys.argv[1:]))
+    mode = {"--k1": "k1", "--k2": "k2", "--k6": "k6"}.get(
+        " ".join(sys.argv[1:]))
     rc = compare(mode) if mode else main()
     print(f"chip_smoke: {time.perf_counter() - t0:.1f} s", file=sys.stderr)
     sys.exit(rc)

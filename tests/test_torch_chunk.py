@@ -429,6 +429,66 @@ def test_chunk_wrappers_refuse_non_cpu_tensors():
             call()
 
 
+# K6's and K13's slab and lane grouping, chosen on the host: (p, dtype,
+# aligned, slab bytes) -> (path, lanes an entry, slab columns)
+LANES = [
+    (128, torch.float32, True, 256, "vec", 16, 64),     # two lines, 2 slabs
+    (128, torch.float32, True, 512, "vec", 32, 128),    # short rows: one
+    (64, torch.float32, True, 256, "vec", 16, 64),
+    (32, torch.float32, True, 256, "vec", 8, 32),       # 8 lanes, 4 entries
+    (16, torch.float32, True, 256, "vec", 4, 16),       # 4 lanes, 8 entries
+    (4, torch.float32, True, 256, "vec", 1, 4),         # 32 entries a round
+    (130, torch.float32, True, 256, "scalar", 32, 32),  # p % 4 != 0
+    (3, torch.float32, True, 256, "scalar", 4, 4),
+    (1, torch.float32, True, 256, "scalar", 1, 1),
+    (128, torch.float32, False, 256, "scalar", 32, 32),  # unaligned
+    (16, torch.float32, False, 256, "scalar", 16, 16),
+    (128, torch.bfloat16, True, 256, "vec", 16, 128),   # 8 columns a lane
+    (256, torch.bfloat16, True, 512, "vec", 32, 256),
+    (12, torch.bfloat16, True, 256, "scalar", 16, 16),  # p % 8 != 0
+    (128, torch.float64, True, 256, "vec", 16, 32),     # 2 columns a lane
+    (2, torch.float64, True, 256, "vec", 1, 2),
+    (128, torch.float64, False, 256, "scalar", 32, 32),
+    (128, torch.float64, False, 512, "scalar", 32, 32),  # at most 32 lanes
+]
+
+
+@pytest.mark.parametrize("p,dtype,aligned,slab,path,lanes,cols", LANES)
+def test_spmm_lanes_by_width_dtype_and_alignment(p, dtype, aligned, slab,
+                                                  path, lanes, cols):
+    got_path, lg, got_cols = cs.spmm_lanes(p, dtype, aligned, slab)
+    assert (got_path, 1 << lg, got_cols) == (path, lanes, cols)
+
+
+def test_slab_bytes_widen_for_short_rows():
+    assert cs.slab_bytes(3_087_898, 123_440) == cs.SLAB_BYTES   # random
+    assert cs.slab_bytes(463_169, 123_440) == cs.SHORT_SLAB_BYTES  # resid
+    assert cs.slab_bytes(8 * 100, 100) == cs.SLAB_BYTES
+    assert cs.slab_bytes(8 * 100 - 1, 100) == cs.SHORT_SLAB_BYTES
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float64])
+@pytest.mark.parametrize("lead", [0, 1])
+def test_spmm_width_limit_is_max_col_blocks_slabs(dtype, lead):
+    # the limit the wrappers check: MAX_COL_BLOCKS slabs of a wide B's
+    # slab width (one B row, ``lead`` elements into its storage; an empty
+    # pattern, and nothing is launched)
+    indptr = torch.zeros(1, dtype=torch.int64)
+    cols = torch.zeros(0, dtype=torch.int64)
+    path, _, width = cs.spmm_lanes(1 << 20, dtype, lead == 0)
+    for p, ok in ((cs.MAX_COL_BLOCKS * width, True),
+                  (cs.MAX_COL_BLOCKS * width + width, False)):
+        B = torch.empty(lead + p, dtype=dtype)[lead:].view(1, p)
+        assert (B.data_ptr() % 16 == 0) == (lead == 0)
+        if ok:
+            entry, _ = cs._spmm_launch_args("chunk_spmm", indptr, cols, B)
+            assert entry.endswith(path)
+        else:
+            with pytest.raises(ValueError, match=f"p <= {p - width} "):
+                cs._spmm_launch_args("chunk_spmm", indptr, cols, B)
+
+
 def test_dispatch_takes_the_chunk_engine_only_where_it_should():
     A = random_container((40, 30), 200, "csr")
     assert ops._chunk_plan(A, "pallas") is not None

@@ -162,7 +162,7 @@ def _awkward_chunk_plan():
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("p", [1, 3, 8, 128, 130, 260])
+@pytest.mark.parametrize("p", [1, 3, 8, 16, 32, 33, 64, 128, 130, 260])
 def test_chunk_kernels_match_plain_and_repeat_bitwise(dev, dtype, p):
     plan = _awkward_chunk_plan()
     g = torch.Generator().manual_seed(p)
@@ -190,13 +190,14 @@ def test_chunk_kernels_match_plain_and_repeat_bitwise(dev, dtype, p):
     assert bool((out[::7] == 0).all())            # empty rows write 0
 
 
-def test_chunk_kernels_take_unaligned_rows(dev):
+@pytest.mark.parametrize("p", [64, 32, 16])
+def test_chunk_kernels_take_unaligned_rows(dev, p):
     # p % 4 == 0 but a base 4 bytes off 16-byte alignment: the scalar path
     plan = _awkward_chunk_plan()
     d = plan.maps(dev)
     vals = torch.randn(plan.nnz, device=dev)
-    B = torch.randn(plan.m * 64 + 1, device=dev)[1:].view(plan.m, 64)
-    X = torch.randn(plan.n * 64 + 1, device=dev)[1:].view(plan.n, 64)
+    B = torch.randn(plan.m * p + 1, device=dev)[1:].view(plan.m, p)
+    X = torch.randn(plan.n * p + 1, device=dev)[1:].view(plan.n, p)
     close(chunk_spmm(d["indptr"], d["cols"], vals, B),
           chunk_spmm_plain(d["indptr"], d["cols"], vals, B), torch.float32)
     close(chunk_sddmm(d["indptr"], d["cols"], X, B),
@@ -585,6 +586,27 @@ def test_slab_kernel_matches_plain_and_repeats_bitwise(dev, dtype):
         if inside:
             close(got[:inside], whole[row0:row0 + inside], dtype)
         assert not got[inside:].any()
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_slab_kernel_rows_are_k6_rows_bitwise(dev, dtype):
+    # row slabs that start, end or sit at the awkward plan's 5,000-entry
+    # row 5, at widths that cross K6's column slabs (33 on the scalar
+    # path, 64 on two-line slabs, 130 past a 128-column tile)
+    from torchsparsegradutils_tpu_torch.kernels.chunk_spmm import (
+        chunk_spmm_slab)
+    plan = _awkward_chunk_plan()
+    d = plan.maps(dev)
+    g = torch.Generator().manual_seed(10)
+    vals = torch.randn(plan.nnz, generator=g).to(dev, dtype)
+    for p in (33, 64, 130):
+        B = torch.randn(plan.m, p, generator=g).to(dev, dtype)
+        whole = chunk_spmm(d["indptr"], d["cols"], vals, B)
+        for row0, rps in ((5, 1), (0, 6), (5, 100), (4, 2), (699, 3)):
+            got = chunk_spmm_slab(d["indptr"], d["cols"], vals, B, row0, rps)
+            inside = max(0, min(rps, plan.n - row0))
+            assert torch.equal(got[:inside], whole[row0:row0 + inside])
+            assert not got[inside:].any()
 
 
 def test_sharded_chunk_spmm_on_one_nccl_rank(dev, tmp_path):

@@ -4,9 +4,9 @@ Port of ``torchsparsegradutils_tpu/kernels/chunk_spmm.py``.  The TPU
 kernels there cut the entry stream into chunks of C entries, reduce each
 chunk's rows with a one-hot matrix on the MXU and combine the chunks
 with a segment sum, because a TPU cannot scatter.  An H100 reads the
-pattern as CSR: one warp owns one output row and walks its entries.  So
-a plan is only what the kernels read, the entries' row pointers and
-gather columns:
+pattern as CSR: one warp owns one output row (of one column slab, for
+the SpMM) and walks its entries.  So a plan is only what the kernels
+read, the entries' row pointers and gather columns:
 
     out[r, :] = Σ_{e in row r} val_e · B[col_e, :]     (SpMM, K6)
     dd[e]     = dot(X[row_e, :], Y[col_e, :])          (SDDMM, K7)
@@ -58,8 +58,14 @@ __all__ = ["ChunkPlan", "build_chunk_plan", "build_chunk_plan_transpose",
            "chunk_bwd_pass1", "chunk_bwd_pass2", "chunk_bwd_fused",
            "ChunkSpmm", "ChunkSddmm", "ChunkBwdPair"]
 
-TILE = 128               # columns a warp covers per block (csrc TILE)
-MAX_COL_BLOCKS = 65535   # CUDA grid y limit: chunk_spmm takes p <= TILE x this
+TILE = 128               # columns a warp covers per block in K12b (csrc TILE)
+MAX_COL_BLOCKS = 65535   # CUDA grid y limit: column blocks (slabs) a launch
+# K6's and K13's column slab of B: two 128-byte lines of a row, or four
+# where the rows hold fewer than SHORT_ROW entries on average (fewer passes
+# over short rows); csrc/chunk_spmm.cu's head comment gives the times.
+SLAB_BYTES = 256
+SHORT_SLAB_BYTES = 512
+SHORT_ROW = 8
 
 
 def _indptr(sorted_rows: np.ndarray, n: int) -> np.ndarray:
@@ -212,6 +218,54 @@ def chunk_spmm_plain(indptr, cols, values, B):
     return out.index_add_(0, _entry_rows(indptr), prod).to(B.dtype)
 
 
+def slab_bytes(nnz: int, n: int) -> int:
+    """Bytes of a B row that one slab of K6 or K13 covers, for a pattern
+    of ``nnz`` entries in ``n`` rows: :data:`SHORT_SLAB_BYTES` where the
+    rows hold fewer than :data:`SHORT_ROW` entries on average, else
+    :data:`SLAB_BYTES`."""
+    return SHORT_SLAB_BYTES if nnz < SHORT_ROW * n else SLAB_BYTES
+
+
+def spmm_lanes(p: int, dtype: torch.dtype, aligned: bool,
+               slab: int = SLAB_BYTES):
+    """K6's and K13's lane grouping for B of width ``p``: ``(path, lg,
+    cols)``, the C entries' ``vec`` or ``scalar`` path, log2 of the lanes
+    that share one entry (``G``) and the columns of one slab (``G`` times
+    a lane's columns).
+
+    A lane reads 16 bytes (``vec``: p a multiple of 16 bytes' elements and
+    B and out 16-byte ``aligned``) or one element (``scalar``).  ``G`` is
+    the least power of two whose lanes cover p, at most ``slab`` bytes
+    (and 32 lanes): so a wide B runs slab by slab, and a narrow one
+    spreads the warp over 32 / G entries at a time.
+    """
+    es = torch.empty((), dtype=dtype).element_size()
+    vw = 16 // es
+    vec = aligned and p % vw == 0
+    if not vec:
+        vw = 1
+    cap = max(1, min(32, slab // (vw * es)))
+    lanes = 1
+    while lanes < cap and lanes * vw < p:
+        lanes *= 2
+    return ("vec" if vec else "scalar"), lanes.bit_length() - 1, lanes * vw
+
+
+def _spmm_launch_args(name, indptr, cols, B):
+    """(C entry suffix, lg) of :func:`spmm_lanes` for a launch over the
+    whole pattern's ``indptr`` and ``cols`` (K13 too, so that its rows
+    are K6's) into a freshly allocated, so aligned, output; raises when
+    the slabs would not fit the grid."""
+    p = B.shape[1]
+    path, lg, width = spmm_lanes(
+        p, B.dtype, B.data_ptr() % 16 == 0,
+        slab_bytes(cols.shape[0], indptr.shape[0] - 1))
+    if -(-p // width) > MAX_COL_BLOCKS:
+        raise ValueError(f"{name}: takes p <= {MAX_COL_BLOCKS * width} for "
+                         f"{B.dtype} on the {path} path, got {p}")
+    return f"{_build.suffix(B.dtype)}_{path}", lg
+
+
 def _shapes(name, *tensors):
     return ValueError(f"{name}: bad operand shapes " + ", ".join(
         str(tuple(t.shape)) for t in tensors))
@@ -224,23 +278,22 @@ def chunk_spmm(indptr: torch.Tensor, cols: torch.Tensor,
     B (m, p) -> (n, p).
 
     CPU tensors take :func:`chunk_spmm_plain`; CUDA tensors launch
-    ``csrc/chunk_spmm.cu`` and raise on what it does not take.
+    ``csrc/chunk_spmm.cu``, slab by slab of B's columns as
+    :func:`spmm_lanes` picks, and raise on what it does not take.
     """
     if all(t.device.type == "cpu" for t in (indptr, cols, values, B)):
         return chunk_spmm_plain(indptr, cols, values, B)
-    suffix = _build.cuda_operands("chunk_spmm", (values, B), (indptr, cols))
+    _build.cuda_operands("chunk_spmm", (values, B), (indptr, cols))
     if indptr.ndim != 1 or values.shape != cols.shape or cols.ndim != 1 \
             or B.ndim != 2:
         raise _shapes("chunk_spmm", indptr, cols, values, B)
     n, p = indptr.shape[0] - 1, B.shape[1]
-    if p > TILE * MAX_COL_BLOCKS:
-        raise ValueError(f"chunk_spmm: takes p <= {TILE * MAX_COL_BLOCKS}, "
-                         f"got {p}")
+    entry, lg = _spmm_launch_args("chunk_spmm", indptr, cols, B)
     out = torch.empty((n, p), dtype=B.dtype, device=B.device)
     if out.numel() == 0:
         return out
-    _build.launch("chunk_spmm", f"tsgu_chunk_spmm_{suffix}", indptr, cols,
-                  values, B, out, n, p)
+    _build.launch("chunk_spmm", f"tsgu_chunk_spmm_{entry}", indptr, cols,
+                  values, B, out, n, p, lg)
     chunk_spmm.launches += 1
     return out
 
@@ -272,8 +325,7 @@ def chunk_spmm_slab(indptr: torch.Tensor, cols: torch.Tensor,
     """
     if all(t.device.type == "cpu" for t in (indptr, cols, values, B)):
         return chunk_spmm_slab_plain(indptr, cols, values, B, row0, rps)
-    suffix = _build.cuda_operands("chunk_spmm_slab", (values, B),
-                                  (indptr, cols))
+    _build.cuda_operands("chunk_spmm_slab", (values, B), (indptr, cols))
     if indptr.ndim != 1 or values.shape != cols.shape or cols.ndim != 1 \
             or B.ndim != 2:
         raise _shapes("chunk_spmm_slab", indptr, cols, values, B)
@@ -281,14 +333,12 @@ def chunk_spmm_slab(indptr: torch.Tensor, cols: torch.Tensor,
     if row0 < 0 or rps < 0:
         raise ValueError(f"chunk_spmm_slab: needs row0 >= 0 and rps >= 0, "
                          f"got {row0}, {rps}")
-    if p > TILE * MAX_COL_BLOCKS:
-        raise ValueError(f"chunk_spmm_slab: takes p <= "
-                         f"{TILE * MAX_COL_BLOCKS}, got {p}")
+    entry, lg = _spmm_launch_args("chunk_spmm_slab", indptr, cols, B)
     out = torch.empty((rps, p), dtype=B.dtype, device=B.device)
     if out.numel() == 0:
         return out
-    _build.launch("chunk_spmm", f"tsgu_chunk_spmm_slab_{suffix}", indptr,
-                  cols, values, B, out, n, row0, rps, p)
+    _build.launch("chunk_spmm", f"tsgu_chunk_spmm_slab_{entry}", indptr,
+                  cols, values, B, out, n, row0, rps, p, lg)
     chunk_spmm_slab.launches += 1
     return out
 
