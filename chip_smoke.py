@@ -29,8 +29,10 @@ last line:
    cfd2 size (3,087,898 entries; SpMM and SDDMM at p = 128, SpMV at
    p = 1, the SpMM over the transpose plan too; the SpMM, K6, also at
    p = 64, 32, 16 and 130, with B and X unaligned, and on the hybrid85
-   residual's plan), each run twice and bitwise equal, and at a small
-   size with empty rows, a row of 5,000 entries, p = 3 and n != m;
+   residual's plan; the SDDMM, K7, also at p = 64, 32, 16, 3 and 130,
+   with X, Y and both unaligned, and on the residual's plan), each run
+   twice and bitwise equal, and at a small size with empty rows, a row
+   of 5,000 entries, p = 3 and n != m;
 3. runs ``sparse_mm`` forward and backward through the public entry
    point on that stencil, on a hybrid pattern at 85 % DIA coverage, at
    p = 16, and on the random pattern at p = 128 and p = 1, and public
@@ -38,8 +40,8 @@ last line:
    gradients against the generic ``backend="xla"`` path on the card and
    a small case against a dense product, and checks that each kernel of
    each path launched during its run (counters set to 0 just before,
-   read just after; K1's, K2's, K6's and K13's plain versions must not
-   run on a path that launches their kernel);
+   read just after; K1's, K2's, K6's, K7's and K13's plain versions must
+   not run on a path that launches their kernel);
    ``sparse_triangular_solve`` forward and backward on two patterns:
    *tri-stencil*, the stencil's lower triangle (13 offsets, diagonally
    dominant) at p = 128 and p = 2, its upper mirror and its transposed
@@ -85,12 +87,14 @@ last line:
    ``torch.sparse.sampled_addmm``), K6 at p = 128, 64, 32, 16 and 3 on
    the random pattern, for Aᵀ G and on the hybrid85 residual (``k6_times``,
    beside ``torch.sparse.mm``, with a probe of B's read rows folded into
-   15.8 MB), and
+   15.8 MB), K7 at p = 128, 64, 32, 16, 8, 3, 2 and 1 and on the residual
+   (``k7_times``, beside ``torch.sparse.sampled_addmm``, with the same
+   probe, K12a's device time and the slab probe), and
    times each kernel, its plain version and one PyTorch library call that
    computes the same function, with CUDA events, and prints them as a
    ``{"kernels": [...]}`` line (twelve rows, K13's from phase 3d, K1's,
-   K2's and K6's with ``per_launch``, K3's with its and
-   ``index_select``'s profiled device time);
+   K2's, K6's and K7's with ``per_launch``, K3's with its and
+   ``index_select``'s profiled device time, K12a's with its own);
 5. prints ``{"ok": true, "device": {...}}`` as the last line.
 
 Without a CUDA device it exits 1 and prints no result.
@@ -103,9 +107,12 @@ steps with tri-stencil p = 2 fwd+bwd as one ``k2_compare`` line;
 ``--k6`` prints K6's ``k6_times``, K13's time whole and per slab of 4,
 and the steps that launch K6 or K13 (random p=128, hybrid85,
 sharded-chunk at world size 1, public ``sddmm`` on the random pattern)
-as one ``k6_compare`` line.  Copied into an unpacked checkout of another
-commit (``git archive``) and run from there, each measures that commit's
-kernel the same way, so two commits compare on one card in turns.
+as one ``k6_compare`` line; ``--k7`` prints K7's ``k7_times`` and the
+same steps with random p=1, tri-random p=2 and random-fused (whose K12a
+computes K7's gradA) as one ``k7_compare`` line.  Copied into an
+unpacked checkout of another commit (``git archive``) and run from
+there, each measures that commit's kernel the same way, so two commits
+compare on one card in turns.
 """
 
 import contextlib
@@ -137,12 +144,14 @@ FUSED = ("chunk_bwd_pass1", "chunk_bwd_pass2")
 GRAD_TOL = (1e-4, 1e-6)  # (rtol, atol): LSE gradients, the JAX tests' own
 FAST_REL = 1e-2  # |gradB - split| / |split| with V stored in bfloat16
 ROUTES = []             # triangular-solve routes taken, in order
-PLAIN = {"dia_spmm_plain": 0,    # K1's, K2's, K6's and K13's plain
-         "dia_sddmm_plain": 0,   # versions called by their wrappers
-         "chunk_spmm_plain": 0, "chunk_spmm_slab_plain": 0}
+PLAIN = {"dia_spmm_plain": 0,    # K1's, K2's, K6's, K7's and K13's
+         "dia_sddmm_plain": 0,   # plain versions called by their wrappers
+         "chunk_spmm_plain": 0, "chunk_spmm_slab_plain": 0,
+         "chunk_sddmm_plain": 0}
 K1_PS = (128, 16, 1)    # K1's widths on the main path: stencil, p=16, matvec
 K2_PS = (128, 16, 2, 1)  # K2's: stencil, p=16, tri-stencil p=2, matvec
 K6_PS = (128, 64, 32, 16, 3)  # K6's widths timed on the random pattern
+K7_PS = (128, 64, 32, 16, 8, 3, 2, 1)  # K7's: its slab, narrow and p=1 paths
 
 
 def smi_line() -> str:
@@ -284,7 +293,7 @@ def track_routes():
 
 
 def count_plain():
-    """Count calls of K1's, K2's, K6's and K13's plain versions made
+    """Count calls of K1's, K2's, K6's, K7's and K13's plain versions made
     through their kernels modules (their wrappers' CPU paths) in
     ``PLAIN``: a step on the card must make none."""
     from torchsparsegradutils_tpu_torch.kernels import chunk_spmm, dia
@@ -293,7 +302,9 @@ def count_plain():
                            (chunk_spmm, "chunk_spmm_plain",
                             "chunk_spmm_plain"),
                            (chunk_spmm, "chunk_spmm_slab_plain",
-                            "chunk_spmm_slab_plain")):
+                            "chunk_spmm_slab_plain"),
+                           (chunk_spmm, "chunk_sddmm_plain",
+                            "chunk_sddmm_plain")):
         plain = getattr(mod, name)
 
         def counted(*a, _plain=plain, _key=key, **k):
@@ -325,6 +336,8 @@ def read_counters(label, expect, forbid=()):
                                    if k in expect)
     if {"chunk_spmm", "chunk_spmm_slab"} & set(expect):
         forbid += ("chunk_spmm_plain", "chunk_spmm_slab_plain")
+    if "chunk_sddmm" in expect:
+        forbid += ("chunk_sddmm_plain",)
     wrong = [k for k in forbid if launches[k] != 0]
     if wrong:
         raise AssertionError(f"{label}: kernels {wrong} launched off their "
@@ -634,6 +647,38 @@ def check_k6_cases(plan, rplan, vals, rvals, B, X, dt_name, gen):
             err = max(err, close(f"chunk_spmm {what} {side} (repeats "
                                  "bitwise)", got, chunk_spmm_plain(*args),
                                  dt_name))
+    return err
+
+
+def check_k7_cases(plan, rplan, Y, X, dt_name, gen):
+    """K7 against its plain version beyond :func:`check_chunk_kernels`'s
+    p = 128, each launched twice and bitwise equal: at p = 64, 32, 16, 3
+    and 130 (past a slab and a 128-column tile), with X, then Y, then
+    both unaligned at p = 128, and on the hybrid85 residual's plan
+    (``rplan``, whose rows hold fewer than 8 entries on average) at
+    p = 128.  Returns the largest error."""
+    import torch
+    from torchsparsegradutils_tpu_torch.kernels.chunk_spmm import (
+        chunk_sddmm, chunk_sddmm_plain)
+    cases = [(f"p={p}", plan, X[:, :p].contiguous(), Y[:, :p].contiguous())
+             for p in (64, 32, 16, 3)]
+    cases += [("p=130", plan, torch.cat([X, X[:, :2]], 1),
+               torch.cat([Y, Y[:, :2]], 1)),
+              ("X unaligned", plan, unaligned(X, 1, gen), Y),
+              ("Y unaligned", plan, X, unaligned(Y, 1, gen)),
+              ("X, Y unaligned", plan, unaligned(X, 1, gen),
+               unaligned(Y, 1, gen)),
+              ("hybrid85 residual", rplan, X, Y)]
+    err = 0.0
+    for what, pl, x, y in cases:
+        d = pl.maps(y.device)
+        args = (d["indptr"], d["cols"], x, y)
+        got, again = chunk_sddmm(*args), chunk_sddmm(*args)
+        if not torch.equal(got, again):
+            raise AssertionError(f"chunk_sddmm {what} [{dt_name}]: two "
+                                 "launches differ")
+        err = max(err, close(f"chunk_sddmm {what} (repeats bitwise)", got,
+                             chunk_sddmm_plain(*args), dt_name))
     return err
 
 
@@ -1074,6 +1119,75 @@ def k6_times(R, cplan, H, B, G, dev):
     return out
 
 
+def k7_times(R, cplan, H, B, G, dev):
+    """K7's time per call (CUDA events, and the profiled device time of
+    every kernel whose name holds ``chunk_sddmm``, so of all its passes)
+    for gradA = sddmm(G, B) on the random pattern at each p of ``K7_PS``,
+    and on the hybrid85 residual at p = 128, each beside its bound, its
+    plain version and ``torch.sparse.sampled_addmm`` on the same CSR; as a
+    probe of the L2, p = 128 with every column folded into B's first
+    N / 4 rows (15.8 MB of B read, which the L2 holds; no plain or
+    library time, as rows may repeat a column); K12a's device time at
+    p = 128 (its gradA is K7's, bitwise); and, where the checkout picks
+    K7's column slab on the host (``sddmm_passes``), the profiled device
+    time at p = 128 on the random pattern and on the residual with slabs
+    of one, two and four 128-byte lines (``slab_probe``)."""
+    import numpy as np
+    import torch
+    from torchsparsegradutils_tpu_torch.kernels import chunk_spmm as cs
+    from torchsparsegradutils_tpu_torch.kernels import dia
+    chunk_sddmm, chunk_sddmm_plain = cs.chunk_sddmm, cs.chunk_sddmm_plain
+    es = 4
+    hplan = dia.build_dia_plan(H.row_sa(), H.col_sa(), N, N)
+    rp = dia._resid_chunk_plan(hplan)
+    d, dr = cplan.maps(dev), rp.maps(dev)
+    fold = N // 4
+    cases = [(f"p{p}", d, d["cols"], G[:, :p].contiguous(),
+              B[:, :p].contiguous(), cplan) for p in K7_PS]
+    cases += [("resid_p128", dr, dr["cols"], G, B, rp),
+              ("p128_l2_resident", d, d["cols"] % fold, G, B, cplan)]
+    out = {}
+    for label, maps, cols, X, Y, pl in cases:
+        ip = maps["indptr"]
+        n, nnz, p = ip.shape[0] - 1, cols.shape[0], X.shape[1]
+        host_cols = pl.cols % fold if label == "p128_l2_resident" \
+            else pl.cols
+        ucols = len(np.unique(host_cols))           # Y rows the call reads
+        urows = int((pl.indptr[1:] > pl.indptr[:-1]).sum())    # X rows
+        b_ms, b_by = bound((urows + ucols) * p * es + nnz * 8
+                           + (n + 1) * 8 + nnz * es, 2 * nnz * p)
+        row = {"entries": nnz,
+               "ms": time_ms(lambda: chunk_sddmm(ip, cols, X, Y)),
+               "device_ms": device_ms(lambda: chunk_sddmm(ip, cols, X, Y),
+                                      "chunk_sddmm"),
+               "bound_ms": b_ms, "bound_by": b_by}
+        if label != "p128_l2_resident":
+            csr = torch.sparse_csr_tensor(ip, cols, torch.ones(
+                nnz, device=dev), (n, Y.shape[0]))
+            row["plain_ms"] = time_ms(
+                lambda: chunk_sddmm_plain(ip, cols, X, Y), reps=5)
+            row["library_ms"] = time_ms(
+                lambda: torch.sparse.sampled_addmm(csr, X, Y.t(), beta=0.0))
+        out[label] = row
+    out["k12a_p128_device_ms"] = device_ms(
+        lambda: cs.chunk_bwd_pass1(d["indptr"], d["cols"], R.values, B, G,
+                                   torch.float32), "bwd_rows")
+    if hasattr(cs, "sddmm_passes"):
+        saved = cs.SLAB_BYTES, cs.SHORT_SLAB_BYTES
+        probe = {}
+        try:
+            for label, maps in (("random_p128", d), ("resid_p128", dr)):
+                for slab in (128, 256, 512):
+                    cs.SLAB_BYTES = cs.SHORT_SLAB_BYTES = slab
+                    probe.setdefault(label, {})[slab] = device_ms(
+                        lambda: chunk_sddmm(maps["indptr"], maps["cols"], G,
+                                            B), "chunk_sddmm")
+        finally:
+            cs.SLAB_BYTES, cs.SHORT_SLAB_BYTES = saved
+        out["slab_probe"] = probe
+    return out
+
+
 def k13_times(R, plans, B, dev):
     """K13's time per slab of each sharded chunk plan of ``plans`` (CUDA
     events, and the kernel's profiled device time) beside its bound, its
@@ -1106,22 +1220,23 @@ def k13_times(R, plans, B, dev):
 
 
 def compare(which) -> int:
-    """``--k1`` / ``--k2`` / ``--k6``: that kernel's times (:func:`k1_times`,
-    :func:`k2_times`; for K6 :func:`k6_times` and K13's
-    :func:`k13_times`, whole and per slab of 4) and the times of the steps
-    that launch it, wall and profiled device time, nothing else: for K1
-    and K2 stencil, hybrid85, stencil p=16 and sharded-dia fwd+bwd (K2
-    also tri-stencil p = 2); for K6 random p=128, hybrid85,
-    sharded-chunk at world size 1 and public ``sddmm`` on the random
-    pattern.  Run in turns from two checkouts to compare them on one
-    card.  Prints one JSON line."""
+    """``--k1`` / ``--k2`` / ``--k6`` / ``--k7``: that kernel's times
+    (:func:`k1_times`, :func:`k2_times`, :func:`k7_times`; for K6
+    :func:`k6_times` and K13's :func:`k13_times`, whole and per slab of
+    4) and the times of the steps that launch it, wall and profiled
+    device time, nothing else: for K1 and K2 stencil, hybrid85, stencil
+    p=16 and sharded-dia fwd+bwd (K2 also tri-stencil p = 2); for K6 and
+    K7 random p=128, hybrid85, sharded-chunk at world size 1 and public
+    ``sddmm`` on the random pattern (K7 also random p=1, tri-random p=2
+    and random-fused, whose K12a computes K7's gradA).  Run in turns from
+    two checkouts to compare them on one card.  Prints one JSON line."""
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     from torchsparsegradutils_tpu_torch import (sddmm, sparse_mm,
                                                 sparse_triangular_solve)
-    from torchsparsegradutils_tpu_torch.kernels import _build
+    from torchsparsegradutils_tpu_torch.kernels import _build, dia
     from torchsparsegradutils_tpu_torch.kernels.chunk_spmm import (
         build_chunk_plan)
     from torchsparsegradutils_tpu_torch.kernels.dia import (build_dia_plan,
@@ -1129,7 +1244,7 @@ def compare(which) -> int:
     from torchsparsegradutils_tpu_torch.parallel import (
         build_sharded_chunk_plan, sharded_chunk_spmm, sharded_dia_spmm)
     from torchsparsegradutils_tpu_torch.utils.random_sparse import (
-        hybrid_sparse, rand_sparse, stencil_sparse)
+        hybrid_sparse, rand_sparse, rand_sparse_tri, stencil_sparse)
     dev = torch.device("cuda", 0)
     card = smi_line()
     _build.libraries()
@@ -1140,14 +1255,17 @@ def compare(which) -> int:
     G = torch.randn(N, P, generator=gen).to(dev)
     H = hybrid_sparse((N, N), STENCIL_OFFSETS, NNZ_HYBRID, dia_coverage=0.85,
                       generator=gen, device=dev)
-    if which == "k6":
+    if which in ("k6", "k7"):
         R = rand_sparse((N, N), NNZ_RANDOM, layout="csr", generator=gen,
                         device=dev)
         cplan = build_chunk_plan(R.row_sa(), R.col_sa(), N, N)
         plan1 = build_sharded_chunk_plan(R, 1)
+    if which == "k6":
         res = {"k6": k6_times(R, cplan, H, B, G, dev),
                "k13": k13_times(R, (plan1, build_sharded_chunk_plan(R, 4)),
                                 B, dev)}
+    elif which == "k7":
+        res = {"k7": k7_times(R, cplan, H, B, G, dev)}
     elif which == "k1":
         res = {"k1": k1_times(A, plan, values_to_grid(plan, A.values), B, G,
                               dev)}
@@ -1158,9 +1276,18 @@ def compare(which) -> int:
         return chained_step(lambda v, b: sparse_mm(M.with_data(v), b),
                             M.values, B[:, :p].contiguous(),
                             G[:, :p].contiguous())
+
+    def fused(fn):
+        def run():
+            dia.SPMM_BWD = "fused"
+            try:
+                fn()
+            finally:
+                dia.SPMM_BWD = "split"
+        return run
     steps = {}
     with one_rank_group(dev):
-        if which == "k6":
+        if which in ("k6", "k7"):
             C = torch.randn(R.nnz, generator=gen).to(dev)
             todo = [("random", step(R, P)), ("hybrid85", step(H, P)),
                     ("sharded_chunk", chained_step(
@@ -1168,7 +1295,17 @@ def compare(which) -> int:
                         R.values, B, G)),
                     ("random_sddmm", chained_step(
                         lambda x, y: sddmm(R, x, y).values, G, B, C))]
-        else:
+        if which == "k7":
+            TR = rand_sparse_tri((N, N), NNZ_TRI_RANDOM, upper=False,
+                                 layout="csr", generator=gen, device=dev)
+            todo += [("random_p1", step(R, 1)),
+                     ("tri_random_p2", chained_step(
+                         lambda v, b: sparse_triangular_solve(
+                             TR.with_data(v), b, upper=False),
+                         TR.values, B[:, :2].contiguous(),
+                         G[:, :2].contiguous())),
+                     ("random_fused", fused(step(R, P)))]
+        elif which != "k6":
             f = sharded_dia_spmm(A)
             todo = [("stencil", step(A, P)), ("hybrid85", step(H, P)),
                     ("stencil_p16", step(A, 16)),
@@ -1182,7 +1319,8 @@ def compare(which) -> int:
                 T.values, B[:, :2].contiguous(), G[:, :2].contiguous())))
         for label, fn in todo:
             steps[f"{label}_fwd_bwd_ms"] = time_ms(
-                fn, reps=10 if label.startswith("tri") else 50)
+                fn, reps=10 if label.startswith("tri") else 50,
+                warmup=1 if label.startswith("tri_random") else 3)
             # the device's share, which the host's pace does not move
             steps[f"{label}_fwd_bwd_device_ms"] = device_ms(fn, "", reps=10)
     res["steps"] = steps
@@ -1495,6 +1633,8 @@ def main() -> int:
                                  name)
         ec["chunk_spmm"] = max(ec["chunk_spmm"], check_k6_cases(
             cplan, rplan, R.values.to(dt), rvals.to(dt), b, gg, name, gen))
+        ec["chunk_sddmm"] = max(ec["chunk_sddmm"], check_k7_cases(
+            cplan, rplan, b, gg, name, gen))
         sv = torch.randn(small.nnz, generator=gen).to(dev, dt)
         sB = torch.randn(small.m, 3, generator=gen).to(dev, dt)
         sX = torch.randn(small.n, 3, generator=gen).to(dev, dt)
@@ -1638,7 +1778,7 @@ def main() -> int:
             zero_counters()
             got = fwd_bwd(R, B, G, "auto", grad_precision=gp)
             lf = read_counters(f"random-fused p=128 {gp}", FUSED,
-                               ("chunk_sddmm",))
+                               ("chunk_sddmm", "chunk_sddmm_plain"))
             if lf["chunk_spmm"] != 1:
                 raise AssertionError("random-fused: chunk_spmm launched "
                                      f"{lf['chunk_spmm']} times, not once "
@@ -1811,6 +1951,8 @@ def main() -> int:
     print(json.dumps({"k2_times": k2, "card": card}))
     k6 = k6_times(R, cplan, H, B, G, dev)
     print(json.dumps({"k6_times": k6, "card": card}))
+    k7 = k7_times(R, cplan, H, B, G, dev)
+    print(json.dumps({"k7_times": k7, "card": card}))
     es = 4
     n, m, K = N, N, plan.K
     cells = valid_cells(plan.offsets.tolist(), n, m)
@@ -1964,6 +2106,10 @@ def main() -> int:
             row["per_launch"] = k2
         if name == "chunk_spmm":
             row["per_launch"] = k6
+        if name == "chunk_sddmm":
+            row["per_launch"] = k7
+        if name == "chunk_bwd_pass1":
+            row["device_ms"] = device_ms(kern, "bwd_rows")
         if name == "gather":
             # K3's event time is near the host's launch rate: the profiled
             # kernel time of K3 and of the library call
@@ -1981,7 +2127,7 @@ def main() -> int:
 
 if __name__ == "__main__":
     t0 = time.perf_counter()
-    mode = {"--k1": "k1", "--k2": "k2", "--k6": "k6"}.get(
+    mode = {"--k1": "k1", "--k2": "k2", "--k6": "k6", "--k7": "k7"}.get(
         " ".join(sys.argv[1:]))
     rc = compare(mode) if mode else main()
     print(f"chip_smoke: {time.perf_counter() - t0:.1f} s", file=sys.stderr)

@@ -489,6 +489,72 @@ def test_spmm_width_limit_is_max_col_blocks_slabs(dtype, lead):
                 cs._spmm_launch_args("chunk_spmm", indptr, cols, B)
 
 
+# K7's (and K12a's) lanes and passes: (p, dtype, aligned, nnz, n) ->
+# (path, lanes an entry, slab columns, passes).  The random cfd2 pattern
+# (25 entries a row) takes two-line slabs, the hybrid85 residual (3.8)
+# four-line ones.
+LONG, SHORT = (3_087_898, 123_440), (463_169, 123_440)
+PASSES = [
+    (128, torch.float32, True, *LONG, "vec", 16, 64, 2),    # the main path
+    (128, torch.float32, True, *SHORT, "vec", 32, 128, 1),  # one pass
+    (64, torch.float32, True, *LONG, "vec", 16, 64, 1),
+    (32, torch.float32, True, *LONG, "vec", 8, 32, 1),
+    (16, torch.float32, True, *LONG, "vec", 4, 16, 1),      # 8 a round
+    (130, torch.float32, True, *LONG, "scalar", 32, 32, 5),
+    (128, torch.float32, False, *LONG, "scalar", 32, 32, 4),  # unaligned
+    (128, torch.float32, False, *SHORT, "scalar", 32, 32, 4),
+    (3, torch.float32, True, *LONG, "scalar", 4, 4, 1),
+    (1, torch.float32, True, *LONG, "scalar", 1, 1, 1),
+    (0, torch.float32, True, *LONG, "vec", 1, 4, 1),        # one pass
+    (128, torch.bfloat16, True, *LONG, "vec", 16, 128, 1),
+    (256, torch.bfloat16, True, *LONG, "vec", 16, 128, 2),
+    (260, torch.bfloat16, True, *LONG, "scalar", 32, 32, 9),
+    (128, torch.float64, True, *LONG, "vec", 16, 32, 4),
+    (128, torch.float64, True, *SHORT, "vec", 32, 64, 2),
+    (130, torch.float64, False, *SHORT, "scalar", 32, 32, 5),
+]
+
+
+@pytest.mark.parametrize("p,dtype,aligned,nnz,n,path,lanes,cols,passes",
+                         PASSES)
+def test_sddmm_passes_by_width_dtype_alignment_and_row_length(
+        p, dtype, aligned, nnz, n, path, lanes, cols, passes):
+    got_path, lg, got_cols, got_passes = cs.sddmm_passes(p, dtype, aligned,
+                                                         nnz, n)
+    assert (got_path, 1 << lg, got_cols, got_passes) == (path, lanes, cols,
+                                                         passes)
+
+
+@pytest.mark.parametrize("lead", [0, 1])
+def test_sddmm_launch_args_read_alignment_of_both_operands(lead):
+    # X and Y each 16-byte aligned or not: the vector path needs both
+    # (1.5 entries a row: four-line slabs)
+    indptr = torch.tensor([0, 2, 3])
+    cols = torch.tensor([0, 1, 1])
+    buf = torch.zeros(1 + 2 * 128)
+    a, u = buf[:256].view(2, 128), buf[1:].view(2, 128)
+    assert u.data_ptr() % 16 != 0
+    X, Y = (a, u) if lead else (u, a)
+    assert cs._sddmm_launch_args("k", indptr, cols, a, a) == ("vec", 5, 1)
+    assert cs._sddmm_launch_args("k", indptr, cols, X, Y) == ("scalar", 5,
+                                                              4)
+
+
+def test_sddmm_row_limit_is_int32_columns():
+    # the gathered operand's rows reach K7's 32-bit column indices (a
+    # stride-0 view: nothing is allocated or launched)
+    indptr = torch.zeros(2, dtype=torch.int64)
+    cols = torch.zeros(0, dtype=torch.int64)
+    X = torch.zeros(1, 4)
+    for m, ok in ((cs.MAX_SDDMM_ROWS, True), (cs.MAX_SDDMM_ROWS + 1, False)):
+        Y = torch.zeros(1, 4).expand(m, 4)
+        if ok:
+            assert cs._sddmm_launch_args("chunk_sddmm", indptr, cols, X, Y)
+        else:
+            with pytest.raises(ValueError, match=f"at most {m - 1} rows"):
+                cs._sddmm_launch_args("chunk_sddmm", indptr, cols, X, Y)
+
+
 def test_dispatch_takes_the_chunk_engine_only_where_it_should():
     A = random_container((40, 30), 200, "csr")
     assert ops._chunk_plan(A, "pallas") is not None

@@ -18,6 +18,7 @@ from torchsparsegradutils_tpu_torch import (SparseCOO, sddmm,
                                             sparse_logsumexp, sparse_mm,
                                             sparse_triangular_solve)
 from torchsparsegradutils_tpu_torch.kernels import _build, dia
+from torchsparsegradutils_tpu_torch.kernels import chunk_spmm as cs
 from torchsparsegradutils_tpu_torch.kernels.chunk_lse import (
     lse_rows, lse_rows_bwd, lse_rows_bwd_plain, lse_rows_plain)
 from torchsparsegradutils_tpu_torch.kernels.chunk_spmm import (
@@ -188,6 +189,46 @@ def test_chunk_kernels_match_plain_and_repeat_bitwise(dev, dtype, p):
         close(got, plain(*args), dtype)
     out = chunk_spmm(d["indptr"], d["cols"], vals, B)
     assert bool((out[::7] == 0).all())            # empty rows write 0
+
+
+def _short_row_plan():
+    """(3000, 2500): 2.5 entries a row on average (fewer than SHORT_ROW,
+    so K6 and K7 take the four-line slab), every fifth row empty and row
+    7 holding 300 entries."""
+    n, m = 3000, 2500
+    rng = np.random.default_rng(5)
+    keys = np.sort(rng.choice(n * m, 7_000, replace=False))
+    rows, cols = keys // m, keys % m
+    keep = (rows % 5 != 0) & (rows != 7)
+    rows = np.concatenate([rows[keep], np.full(300, 7)])
+    cols = np.concatenate([cols[keep], np.sort(rng.choice(m, 300, False))])
+    order = np.lexsort((cols, rows))
+    plan = build_chunk_plan(StaticArray(rows[order]),
+                            StaticArray(cols[order]), n, m)
+    assert plan.nnz < cs.SHORT_ROW * n
+    return plan
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("p", [3, 16, 64, 128, 130])
+def test_chunk_kernels_on_short_rows_match_plain(dev, dtype, p):
+    plan = _short_row_plan()
+    g = torch.Generator().manual_seed(p)
+    vals = torch.randn(plan.nnz, generator=g).to(dev, dtype)
+    B = torch.randn(plan.m, p, generator=g).to(dev, dtype)
+    X = torch.randn(plan.n, p, generator=g).to(dev, dtype)
+    d = plan.maps(dev)
+    for kern, plain, args in (
+            (chunk_spmm, chunk_spmm_plain, (d["indptr"], d["cols"], vals,
+                                            B)),
+            (chunk_sddmm, chunk_sddmm_plain, (d["indptr"], d["cols"], X,
+                                              B))):
+        before = kern.launches
+        got, again = kern(*args), kern(*args)
+        torch.cuda.synchronize()
+        assert kern.launches == before + 2
+        assert torch.equal(got, again), f"{kern.__name__} not repeatable"
+        close(got, plain(*args), dtype)
 
 
 @pytest.mark.parametrize("p", [64, 32, 16])
@@ -410,7 +451,7 @@ def test_lse_kernels_match_plain_and_repeat_bitwise(dev, dtype,
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("p", [3, 8, 128, 130])
+@pytest.mark.parametrize("p", [3, 8, 33, 64, 128, 130])
 def test_fused_bwd_kernels_match_plain_and_repeat_bitwise(dev, dtype, p):
     plan = _awkward_chunk_plan()
     gen = torch.Generator().manual_seed(p)

@@ -10,16 +10,20 @@
 // torchsparsegradutils_tpu/kernels/chunk_spmm.py:429 and :462).  The TPU
 // passes expand each chunk's G rows with a one-hot MXU product and
 // reduce pass 2's chunks with a segment sum.  Here, as in chunk_sddmm.cu
-// and chunk_spmm.cu, one warp owns one row: pass 1 keeps G[r]'s tile in
-// registers, reads a B row tile per entry (UNROLL entries in flight),
-// sums each dot by a fixed butterfly and writes the entry's V row tile
-// beside it; p <= NARROW_P runs the lanes across entries instead.  Pass
-// 1 walks its 128-column tiles inside the warp, as chunk_sddmm.cu does,
-// because each dd[e] sums over all p columns (tiles over gridDim.y would
-// need atomics or a second pass).  Pass 2 is chunk_spmm.cu with unit
-// weights and a row gather of V through perm, 128-column tiles over
-// gridDim.y.  No atomics: both passes give the same bits on every run,
-// and dd equals chunk_sddmm.cu's.
+// and chunk_spmm.cu, one warp owns one row.  Pass 1 takes chunk_sddmm.cu's
+// lanes and column slabs (chunk_lanes.cuh: G lanes an entry, 32 / G
+// entries a round, U rounds in flight, the slab and lg picked on the host
+// by kernels/chunk_spmm.py, sddmm_passes), but walks a round's slabs
+// inside the warp, in one launch, since it also writes each entry's V
+// row: slab by slab, the G lanes of an entry write their columns of V
+// and sum the slab's share of dd[e] (lane_dot, group_sums), and the
+// shares are added in registers in slab order, slab 0 first.  chunk_sddmm.cu adds the same
+// shares, computed the same way, in the same order across its passes, so
+// dd is bitwise chunk_sddmm.cu's.  p <= NARROW_P runs the lanes across
+// entries instead, each lane a whole dot, as chunk_sddmm.cu does.  Pass 2
+// is a one-warp-a-column SpMM loop with unit weights, gathering V rows
+// through perm, 128-column tiles over gridDim.y.  No atomics: both passes
+// give the same bits on every run.
 //
 // Types: T for vals, B, G, dd and dB (float, bfloat16 or double; sums in
 // float for float and bfloat16, double for double); VT for V, T itself
@@ -33,13 +37,43 @@
 // The pair's bound, about 1.0 ms, is above the split backward's measured
 // time; the fused path is kept for parity, not speed, and is not the
 // default.
-#include "tsgu_common.cuh"
+#include "chunk_lanes.cuh"
 
 namespace {
 
+using tsgu::FULL;
+using tsgu::Piece;
+
 constexpr int WARPS = 8;     // rows (columns in pass 2) per block
-constexpr int UNROLL = 4;    // entries whose rows are loaded together
+constexpr int U = 4;         // pass 1: rounds of B loads in flight a lane
+constexpr int UNROLL = 4;    // pass 2: entries whose rows load together
 constexpr int NARROW_P = 8;  // at or below: pass 1 lanes across entries
+
+// W values in the accumulation type stored as W elements of VT (rounded
+// as tsgu::store_acc rounds), in one streaming store where they fill 4,
+// 8 or 16 bytes.
+template <typename VT, typename A, int W>
+__device__ __forceinline__ void store_v(VT* p, const A (&v)[W]) {
+  VT t[W];
+#pragma unroll
+  for (int w = 0; w < W; ++w) tsgu::store_acc(&t[w], v[w]);
+  constexpr int bytes = W * (int)sizeof(VT);
+  if constexpr (bytes == 16) {
+    uint4 q;
+    memcpy(&q, t, 16);
+    __stcs(reinterpret_cast<uint4*>(p), q);
+  } else if constexpr (bytes == 8) {
+    uint2 q;
+    memcpy(&q, t, 8);
+    __stcs(reinterpret_cast<uint2*>(p), q);
+  } else if constexpr (bytes == 4) {
+    unsigned q;
+    memcpy(&q, t, 4);
+    __stcs(reinterpret_cast<unsigned*>(p), q);
+  } else {
+    p[0] = t[0];
+  }
+}
 
 template <typename T, typename VT, bool VEC>
 __global__ void __launch_bounds__(WARPS * 32)
@@ -47,12 +81,18 @@ bwd_rows_kernel(const int64_t* __restrict__ indptr,
                 const int64_t* __restrict__ cols, const T* __restrict__ vals,
                 const T* __restrict__ B, const T* __restrict__ G,
                 T* __restrict__ dd, VT* __restrict__ V, int64_t n,
-                int64_t p) {
+                int64_t p, int lg) {
   using A = typename tsgu::Acc<T>::type;
+  using P = Piece<T, VEC>;
+  constexpr int W = P::W;
   const int lane = threadIdx.x & 31;
   const int64_t r = (int64_t)blockIdx.x * WARPS + (threadIdx.x >> 5);
   if (r >= n) return;  // the whole warp leaves together
-  const int64_t beg = indptr[r], end = indptr[r + 1];
+  // lanes 0 and 1 load the row's bounds
+  long long ip = 0;
+  if (lane <= 1) ip = indptr[r + lane];
+  const int64_t beg = __shfl_sync(FULL, ip, 0);
+  const int64_t end = __shfl_sync(FULL, ip, 1);
   if (beg == end) return;
   const T* g = G + r * p;
 
@@ -78,41 +118,63 @@ bwd_rows_kernel(const int64_t* __restrict__ indptr,
     return;
   }
 
-  for (int64_t e0 = beg; e0 < end; e0 += UNROLL) {
-    A s[UNROLL], v[UNROLL];
-#pragma unroll
-    for (int u = 0; u < UNROLL; ++u) {
-      s[u] = A(0);
-      v[u] = e0 + u < end ? tsgu::load_acc(vals + e0 + u) : A(0);
+  // chunk_sddmm.cu's lanes and slabs, the slabs walked inside the warp
+  const int E = 32 >> lg;
+  const int grp = lane >> lg;
+  const int64_t slabs = (p + ((int64_t)W << lg) - 1) / ((int64_t)W << lg);
+  for (int64_t base = beg; base < end; base += 32) {
+    const int cnt = end - base < 32 ? (int)(end - base) : 32;
+    long long c_cur = 0;
+    A v_cur = A(0);
+    if (lane < cnt) {
+      c_cur = __ldcs(reinterpret_cast<const long long*>(cols) + base + lane);
+      const T t = __ldcs(vals + base + lane);
+      v_cur = tsgu::load_acc(&t);
     }
-    for (int64_t t0 = 0; t0 < p; t0 += tsgu::TILE) {
-      A gt[4], b[UNROLL][4];
-      tsgu::load_tile<VEC>(g, t0, lane, p, gt);
+    A mine = A(0);
+    for (int k = 0; k < cnt; k += U * E) {
+      long long c[U];
+      A v[U], acc[U];
 #pragma unroll
-      for (int u = 0; u < UNROLL; ++u) {
-        if (e0 + u < end) {
-          tsgu::load_tile<VEC>(B + cols[e0 + u] * p, t0, lane, p, b[u]);
-        }
+      for (int u = 0; u < U; ++u) {
+        const int slot = k + u * E + grp;
+        acc[u] = A(0);
+        c[u] = __shfl_sync(FULL, c_cur, slot & 31);
+        v[u] = __shfl_sync(FULL, v_cur, slot & 31);
       }
+      for (int64_t s = 0; s < slabs; ++s) {
+        const int64_t col = tsgu::slab_col<T, VEC>(s, lg, lane);
+        const bool live = col < p;
+        A gs[W];
+        P::unpack(live ? P::load(g + col) : P::zero(), gs);
+        typename P::Raw raw[U];
 #pragma unroll
-      for (int u = 0; u < UNROLL; ++u) {
-        if (e0 + u < end) {
-          A w[4];
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            s[u] = tsgu::fma_acc(gt[i], b[u][i], s[u]);
-            w[i] = v[u] * gt[i];
+        for (int u = 0; u < U; ++u) {
+          raw[u] = P::zero();
+          if (k + u * E + grp < cnt && live) {
+            raw[u] = P::load(B + c[u] * p + col);
           }
-          tsgu::store_tile<VEC>(V + (e0 + u) * p, t0, lane, p, w);
         }
-      }
-    }
+        A d[U];
 #pragma unroll
-    for (int u = 0; u < UNROLL; ++u) {
-      const A total = tsgu::warp_sum(s[u]);
-      const int64_t e = e0 + u;
-      if (e < end && lane == (int)(e & 31)) tsgu::store_acc(dd + e, total);
+        for (int u = 0; u < U; ++u) {
+          d[u] = tsgu::lane_dot<T, VEC>(gs, raw[u]);
+          const int64_t e = base + k + u * E + grp;
+          if (k + u * E + grp < cnt && live) {
+            A w[W];
+#pragma unroll
+            for (int i = 0; i < W; ++i) w[i] = v[u] * gs[i];
+            store_v(V + e * p + col, w);
+          }
+        }
+        // slab s's shares of dd, added in chunk_sddmm.cu's order
+        tsgu::group_sums<U>(d, lg, lane);
+#pragma unroll
+        for (int i = 0; i < U; ++i) acc[i] = s == 0 ? d[i] : acc[i] + d[i];
+      }
+      tsgu::sums_to_slot_lanes<U>(acc, k, lg, lane, mine);
     }
+    if (lane < cnt) tsgu::store_acc(dd + base + lane, mine);
   }
 }
 
@@ -147,19 +209,15 @@ bwd_cols_kernel(const int64_t* __restrict__ indptr,
   tsgu::store_tile<VEC>(out + c * p, t0, lane, p, acc);
 }
 
-template <typename T, typename VT>
+template <typename T, typename VT, bool VEC>
 int launch_rows(const void* indptr, const void* cols, const void* vals,
                 const void* B, const void* G, void* dd, void* V, int64_t n,
-                int64_t p, void* stream) {
+                int64_t p, int64_t lg, void* stream) {
   const unsigned blocks = (unsigned)((n + WARPS - 1) / WARPS);
-  void (*kernel)(const int64_t*, const int64_t*, const T*, const T*,
-                 const T*, T*, VT*, int64_t, int64_t) =
-      tsgu::vec_ok(p, B, G) && tsgu::vec_ok(p, V, V)
-          ? &bwd_rows_kernel<T, VT, true>
-          : &bwd_rows_kernel<T, VT, false>;
-  kernel<<<blocks, WARPS * 32, 0, (cudaStream_t)stream>>>(
+  bwd_rows_kernel<T, VT, VEC><<<blocks, WARPS * 32, 0,
+                                (cudaStream_t)stream>>>(
       (const int64_t*)indptr, (const int64_t*)cols, (const T*)vals,
-      (const T*)B, (const T*)G, (T*)dd, (VT*)V, n, p);
+      (const T*)B, (const T*)G, (T*)dd, (VT*)V, n, p, (int)lg);
   return (int)cudaGetLastError();
 }
 
@@ -180,15 +238,22 @@ int launch_cols(const void* indptr, const void* perm, const void* V,
 
 }  // namespace
 
-// Entries tsgu_chunk_bwd_rows_<T>_<VT> and tsgu_chunk_bwd_cols_<T>_<VT>.
-#define TSGU_FUSED_ENTRIES(SFX, T, VT)                                      \
+// Entries tsgu_chunk_bwd_rows_<T>_<VT>_<vec|scalar>(indptr, cols, vals,
+// B, G, dd, V, n, p, lg, stream), with chunk_sddmm.cu's path and lg
+// (kernels/chunk_spmm.py, sddmm_passes), and
+// tsgu_chunk_bwd_cols_<T>_<VT>(indptr, perm, V, out, m, p, stream).
+#define TSGU_ROWS_ENTRY(SFX, T, VT, VEC)                                    \
   int tsgu_chunk_bwd_rows_##SFX(const void* indptr, const void* cols,      \
                                 const void* vals, const void* B,           \
                                 const void* G, void* dd, void* V,          \
-                                int64_t n, int64_t p, void* stream) {      \
-    return launch_rows<T, VT>(indptr, cols, vals, B, G, dd, V, n, p,       \
-                              stream);                                     \
-  }                                                                        \
+                                int64_t n, int64_t p, int64_t lg,          \
+                                void* stream) {                            \
+    return launch_rows<T, VT, VEC>(indptr, cols, vals, B, G, dd, V, n, p,  \
+                                   lg, stream);                            \
+  }
+#define TSGU_FUSED_ENTRIES(SFX, T, VT)                                      \
+  TSGU_ROWS_ENTRY(SFX##_vec, T, VT, true)                                  \
+  TSGU_ROWS_ENTRY(SFX##_scalar, T, VT, false)                              \
   int tsgu_chunk_bwd_cols_##SFX(const void* indptr, const void* perm,      \
                                 const void* V, void* out, int64_t m,       \
                                 int64_t p, void* stream) {                 \

@@ -69,82 +69,15 @@
 // segment_sum combine have no counterpart.  Its own symbol keeps it apart
 // from K6 in a profile; the row loop is the one K6 runs, so its rows are
 // bitwise K6's.
-#include <type_traits>
-
-#include "tsgu_common.cuh"
+#include "chunk_lanes.cuh"
 
 namespace {
 
+using tsgu::FULL;
+using tsgu::Piece;
+
 constexpr int WARPS = 8;  // warps (output rows of a slab) a block
 constexpr int U = 4;      // rounds of B loads in flight a lane
-constexpr unsigned FULL = 0xffffffffu;
-
-// What one lane reads of a B row per entry: 16 bytes (VEC) or one element
-// (scalar), and the accumulation type's W values it holds.
-template <typename T, bool VEC> struct Piece {
-  using A = typename tsgu::Acc<T>::type;
-  static constexpr int W = 1;
-  using Raw = T;
-  __device__ static Raw zero() { return Raw(); }
-  __device__ static Raw load(const T* p) { return __ldg(p); }
-  __device__ static void unpack(Raw q, A (&v)[W]) {
-    v[0] = tsgu::load_acc(&q);
-  }
-  __device__ static void store(T* p, const A (&v)[W]) {
-    tsgu::store_acc(p, v[0]);
-  }
-};
-
-template <typename T> struct Piece<T, true> {
-  using A = typename tsgu::Acc<T>::type;
-  static constexpr int W = 16 / (int)sizeof(T);
-  using Raw = uint4;
-  __device__ static Raw zero() { return make_uint4(0, 0, 0, 0); }
-  __device__ static Raw load(const T* p) {
-    return __ldg(reinterpret_cast<const uint4*>(p));
-  }
-  __device__ static void unpack(Raw q, A (&v)[W]) {
-    const unsigned w[4] = {q.x, q.y, q.z, q.w};
-    if constexpr (std::is_same<T, float>::value) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) v[i] = __uint_as_float(w[i]);
-    } else if constexpr (std::is_same<T, double>::value) {
-      v[0] = __hiloint2double((int)w[1], (int)w[0]);
-      v[1] = __hiloint2double((int)w[3], (int)w[2]);
-    } else {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        __nv_bfloat162 h;
-        memcpy(&h, &w[i], 4);
-        const float2 f = __bfloat1622float2(h);
-        v[2 * i] = f.x;
-        v[2 * i + 1] = f.y;
-      }
-    }
-  }
-  __device__ static void store(T* p, const A (&v)[W]) {
-    uint4 q;
-    if constexpr (std::is_same<T, float>::value) {
-      q = make_uint4(__float_as_uint(v[0]), __float_as_uint(v[1]),
-                     __float_as_uint(v[2]), __float_as_uint(v[3]));
-    } else if constexpr (std::is_same<T, double>::value) {
-      q = make_uint4((unsigned)__double2loint(v[0]),
-                     (unsigned)__double2hiint(v[0]),
-                     (unsigned)__double2loint(v[1]),
-                     (unsigned)__double2hiint(v[1]));
-    } else {
-      unsigned w[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const __nv_bfloat162 h = __floats2bfloat162_rn(v[2 * i],
-                                                       v[2 * i + 1]);
-        memcpy(&w[i], &h, 4);
-      }
-      q = make_uint4(w[0], w[1], w[2], w[3]);
-    }
-    __stcs(reinterpret_cast<uint4*>(p), q);
-  }
-};
 
 // Cols and vals of entries [base, min(base + 32, end)) of a row, lane j
 // holding entry base + j (0 past the end): one coalesced load each, read
@@ -231,13 +164,6 @@ __device__ __forceinline__ void row_slab(
   if (grp == 0 && live) P::store(dst + col, acc);
 }
 
-// The lane's first column: slab blockIdx.y of 2^lg lanes of W columns.
-template <typename T, bool VEC>
-__device__ __forceinline__ int64_t lane_col(int lg, int lane) {
-  return (((int64_t)blockIdx.y << lg) + (lane & ((1 << lg) - 1))) *
-         Piece<T, VEC>::W;
-}
-
 // One warp a row of one slab.  The kernel is bound by the B rows in
 // flight, so occupancy is what counts: this loop takes 32 registers for
 // f32 (no launch bound forces it; a bound that did made other shapes of
@@ -251,7 +177,7 @@ chunk_spmm_kernel(const int64_t* __restrict__ indptr,
   const int lane = threadIdx.x & 31;
   const int64_t r = (int64_t)blockIdx.x * WARPS + (threadIdx.x >> 5);
   if (r >= n) return;  // the whole warp leaves together
-  const int64_t col = lane_col<T, VEC>(lg, lane);
+  const int64_t col = tsgu::slab_col<T, VEC>(blockIdx.y, lg, lane);
   row_slab<T, VEC>(indptr, cols, vals, B, out + r * p, r, n, p, col,
                    col < p, lg, lane);
 }
@@ -268,7 +194,7 @@ chunk_spmm_slab_kernel(const int64_t* __restrict__ indptr,
   const int lane = threadIdx.x & 31;
   const int64_t l = (int64_t)blockIdx.x * WARPS + (threadIdx.x >> 5);
   if (l >= rps) return;
-  const int64_t col = lane_col<T, VEC>(lg, lane);
+  const int64_t col = tsgu::slab_col<T, VEC>(blockIdx.y, lg, lane);
   row_slab<T, VEC>(indptr, cols, vals, B, out + l * p, row0 + l, n, p, col,
                    col < p, lg, lane);
 }

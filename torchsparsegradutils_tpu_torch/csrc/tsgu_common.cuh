@@ -78,13 +78,6 @@ __device__ __forceinline__ void store4(__nv_bfloat16* p, const float (&v)[4]) {
   memcpy(&q.y, &b, 4);
   *reinterpret_cast<uint2*>(p) = q;
 }
-// float64 sums stored in bfloat16 (the fused backward's V under "fast"):
-// through float, as PyTorch converts (store_acc takes them the same way)
-__device__ __forceinline__ void store4(__nv_bfloat16* p,
-                                       const double (&v)[4]) {
-  const float f[4] = {(float)v[0], (float)v[1], (float)v[2], (float)v[3]};
-  store4(p, f);
-}
 __device__ __forceinline__ void store4(double* p, const double (&v)[4]) {
   reinterpret_cast<double2*>(p)[0] = make_double2(v[0], v[1]);
   reinterpret_cast<double2*>(p)[1] = make_double2(v[2], v[3]);

@@ -5,8 +5,8 @@ kernels there cut the entry stream into chunks of C entries, reduce each
 chunk's rows with a one-hot matrix on the MXU and combine the chunks
 with a segment sum, because a TPU cannot scatter.  An H100 reads the
 pattern as CSR: one warp owns one output row (of one column slab, for
-the SpMM) and walks its entries.  So a plan is only what the kernels
-read, the entries' row pointers and gather columns:
+the SpMM and the SDDMM) and walks its entries.  So a plan is only what
+the kernels read, the entries' row pointers and gather columns:
 
     out[r, :] = Σ_{e in row r} val_e · B[col_e, :]     (SpMM, K6)
     dd[e]     = dot(X[row_e, :], Y[col_e, :])          (SDDMM, K7)
@@ -60,12 +60,14 @@ __all__ = ["ChunkPlan", "build_chunk_plan", "build_chunk_plan_transpose",
 
 TILE = 128               # columns a warp covers per block in K12b (csrc TILE)
 MAX_COL_BLOCKS = 65535   # CUDA grid y limit: column blocks (slabs) a launch
-# K6's and K13's column slab of B: two 128-byte lines of a row, or four
-# where the rows hold fewer than SHORT_ROW entries on average (fewer passes
-# over short rows); csrc/chunk_spmm.cu's head comment gives the times.
+# K6's, K13's, K7's and K12a's column slab of the gathered operand: two
+# 128-byte lines of a row, or four where the rows hold fewer than SHORT_ROW
+# entries on average (fewer passes over short rows); csrc/chunk_spmm.cu's
+# and csrc/chunk_sddmm.cu's head comments give the times.
 SLAB_BYTES = 256
 SHORT_SLAB_BYTES = 512
 SHORT_ROW = 8
+MAX_SDDMM_ROWS = 2**31 - 1   # K7 shuffles its column indices as int32
 
 
 def _indptr(sorted_rows: np.ndarray, n: int) -> np.ndarray:
@@ -219,10 +221,10 @@ def chunk_spmm_plain(indptr, cols, values, B):
 
 
 def slab_bytes(nnz: int, n: int) -> int:
-    """Bytes of a B row that one slab of K6 or K13 covers, for a pattern
-    of ``nnz`` entries in ``n`` rows: :data:`SHORT_SLAB_BYTES` where the
-    rows hold fewer than :data:`SHORT_ROW` entries on average, else
-    :data:`SLAB_BYTES`."""
+    """Bytes of a gathered row that one slab of K6, K13, K7 or K12a
+    covers, for a pattern of ``nnz`` entries in ``n`` rows:
+    :data:`SHORT_SLAB_BYTES` where the rows hold fewer than
+    :data:`SHORT_ROW` entries on average, else :data:`SLAB_BYTES`."""
     return SHORT_SLAB_BYTES if nnz < SHORT_ROW * n else SLAB_BYTES
 
 
@@ -353,6 +355,31 @@ def chunk_sddmm_plain(indptr, cols, X, Y):
     return (Xe * Y.to(acc).index_select(0, cols)).sum(-1).to(X.dtype)
 
 
+def sddmm_passes(p: int, dtype: torch.dtype, aligned: bool, nnz: int,
+                 n: int):
+    """K7's (and K12a's) lanes and column slabs for operands of width
+    ``p`` at a pattern of ``nnz`` entries in ``n`` rows: ``(path, lg,
+    cols, passes)``, :func:`spmm_lanes` at :func:`slab_bytes`'s slab
+    (``aligned``: X and Y, or G and B, both 16-byte aligned) and the
+    number of slabs, one launch of K7 each (at least one: p <= 8, and p
+    = 0, take one pass of the narrow path)."""
+    path, lg, width = spmm_lanes(p, dtype, aligned, slab_bytes(nnz, n))
+    return path, lg, width, max(1, -(-p // width))
+
+
+def _sddmm_launch_args(name, indptr, cols, X, Y):
+    """(path, lg, passes) of :func:`sddmm_passes` for a launch with row
+    operand X and gathered operand Y; raises where Y has more rows than
+    K7's 32-bit column indices reach."""
+    if Y.shape[0] > MAX_SDDMM_ROWS:
+        raise ValueError(f"{name}: takes at most {MAX_SDDMM_ROWS} rows of "
+                         f"the gathered operand, got {Y.shape[0]}")
+    path, lg, _, passes = sddmm_passes(
+        X.shape[1], X.dtype, X.data_ptr() % 16 == 0 and Y.data_ptr() % 16
+        == 0, cols.shape[0], indptr.shape[0] - 1)
+    return path, lg, passes
+
+
 def chunk_sddmm(indptr: torch.Tensor, cols: torch.Tensor, X: torch.Tensor,
                 Y: torch.Tensor) -> torch.Tensor:
     """``out[e] = dot(X[r, :], Y[cols[e], :])`` for the entries ``e`` of
@@ -360,7 +387,8 @@ def chunk_sddmm(indptr: torch.Tensor, cols: torch.Tensor, X: torch.Tensor,
     Y (m, p) -> (nnz,).
 
     CPU tensors take :func:`chunk_sddmm_plain`; CUDA tensors launch
-    ``csrc/chunk_sddmm.cu`` and raise on what it does not take.
+    ``csrc/chunk_sddmm.cu`` once per column slab of :func:`sddmm_passes`,
+    in stream order, and raise on what it does not take.
     """
     if all(t.device.type == "cpu" for t in (indptr, cols, X, Y)):
         return chunk_sddmm_plain(indptr, cols, X, Y)
@@ -372,8 +400,17 @@ def chunk_sddmm(indptr: torch.Tensor, cols: torch.Tensor, X: torch.Tensor,
     out = torch.empty(cols.shape, dtype=X.dtype, device=X.device)
     if out.numel() == 0:
         return out
-    _build.launch("chunk_sddmm", f"tsgu_chunk_sddmm_{suffix}", indptr, cols,
-                  X, Y, out, n, p)
+    path, lg, passes = _sddmm_launch_args("chunk_sddmm", indptr, cols,
+                                          X, Y)
+    entry = f"tsgu_chunk_sddmm_{suffix}_{path}"
+    acc = _build.acc_dtype(X.dtype)
+    # the sums of the passes so far: out itself, or a float buffer for
+    # bfloat16
+    part = out if acc == X.dtype or passes == 1 else torch.empty(
+        cols.shape, dtype=acc, device=X.device)
+    for s in range(passes):
+        _build.launch("chunk_sddmm", entry, indptr, cols, X, Y, part, out,
+                      n, p, lg, s, passes)
     chunk_sddmm.launches += 1
     return out
 
@@ -450,9 +487,12 @@ def chunk_bwd_pass1(indptr: torch.Tensor, cols: torch.Tensor,
     V = torch.empty((values.shape[0], p), dtype=v_dtype, device=B.device)
     if V.numel() == 0:
         return dd.zero_(), V
-    _build.launch("chunk_bwd_fused",
-                  f"tsgu_chunk_bwd_rows_{suffix}_{_build.suffix(v_dtype)}",
-                  indptr, cols, values, B, G, dd, V, n, p)
+    # K7's lanes and slabs for (X, Y) = (G, B), so that dd is K7's bitwise
+    path, lg, _ = _sddmm_launch_args("chunk_bwd_pass1", indptr, cols, G,
+                                     B)
+    _build.launch("chunk_bwd_fused", f"tsgu_chunk_bwd_rows_{suffix}_"
+                  f"{_build.suffix(v_dtype)}_{path}", indptr, cols, values,
+                  B, G, dd, V, n, p, lg)
     chunk_bwd_pass1.launches += 1
     return dd, V
 
