@@ -49,9 +49,11 @@ last line:
    1,543,949 entries at p = 2, on the route ``auto`` picks.  It checks the
    relative residual ``|A x - B| / |B|`` through ``sparse_mm``, the
    gradients against another algorithm on the card, a small case against
-   a dense solve, and the launch counters (the triangular kernel also
-   against its plain version at the cfd2 shapes and small awkward ones in
-   phase 2);
+   a dense solve, and the launch counters (the banded route must launch
+   the triangular kernel and its block inverses, and run neither's plain
+   version; both kernels also against their plain versions at the cfd2
+   shapes and small awkward ones in phase 2, three dtypes, bitwise
+   repeats);
    ``sparse_logsumexp`` (dim 1, dim 0) and ``sparse_bidir_logsumexp``
    forward and backward on three patterns: *lse-stencil* (the DIA route),
    *lse-random* (the row-ELL grid both ways) and *lse-skewed* (1,235 hub
@@ -89,12 +91,16 @@ last line:
    beside ``torch.sparse.mm``, with a probe of B's read rows folded into
    15.8 MB), K7 at p = 128, 64, 32, 16, 8, 3, 2 and 1 and on the residual
    (``k7_times``, beside ``torch.sparse.sampled_addmm``, with the same
-   probe, K12a's device time and the slab probe), and
+   probe, K12a's device time and the slab probe), K9 at p = 128 and 2
+   and for the backward's transposed solve (``k9_times``: event and
+   profiled device time, the block inverses alone, bound, plain version,
+   ``torch.triangular_solve``), and
    times each kernel, its plain version and one PyTorch library call that
    computes the same function, with CUDA events, and prints them as a
-   ``{"kernels": [...]}`` line (twelve rows, K13's from phase 3d, K1's,
-   K2's, K6's and K7's with ``per_launch``, K3's with its and
-   ``index_select``'s profiled device time, K12a's with its own);
+   ``{"kernels": [...]}`` line (thirteen rows, K13's from phase 3d, K1's,
+   K2's, K6's, K7's and K9's with ``per_launch``, K3's with its and
+   ``index_select``'s profiled device time, K12a's and K9's block
+   inverses' with their own);
 5. prints ``{"ok": true, "device": {...}}`` as the last line.
 
 Without a CUDA device it exits 1 and prints no result.
@@ -109,10 +115,18 @@ and the steps that launch K6 or K13 (random p=128, hybrid85,
 sharded-chunk at world size 1, public ``sddmm`` on the random pattern)
 as one ``k6_compare`` line; ``--k7`` prints K7's ``k7_times`` and the
 same steps with random p=1, tri-random p=2 and random-fused (whose K12a
-computes K7's gradA) as one ``k7_compare`` line.  Copied into an
-unpacked checkout of another commit (``git archive``) and run from
-there, each measures that commit's kernel the same way, so two commits
-compare on one card in turns.
+computes K7's gradA) as one ``k7_compare`` line; ``--k9`` prints K9's
+``k9_times`` and the steps that launch it (tri-stencil p = 128 and 2,
+fwd and fwd+bwd, the upper mirror and the transposed solve, and the
+fwd+bwd peak extra memory) with, for control, steps that do not
+(stencil, hybrid85, random, tri-random p = 2, the bidir LSE on
+lse-random and lse-skewed, sharded-chunk, sharded-dia, the flagship
+train step) as one ``k9_compare`` line.  Copied into an unpacked
+checkout of another commit (``git archive``) and run from there, each
+measures that commit's kernel the same way, so two commits compare on
+one card in turns.  ``--k9`` also counts K9's launches in one call of
+each step (``<step>_k9_launches``), so the control steps show that they
+launch none.
 """
 
 import contextlib
@@ -137,21 +151,22 @@ TOL = {"float32": (1e-5, 1e-5), "bfloat16": (2e-2, 1e-5),
 TRI_TOL = (1e-3, 1e-4)  # (rtol, atol): tri gradients across algorithms
 DIA_KERNELS = ("dia_spmm", "dia_sddmm", "gather")
 CHUNK_KERNELS = ("chunk_spmm", "chunk_sddmm", "gather")
-TRI_KERNELS = ("tri_dia", "dia_sddmm", "gather")
+TRI_KERNELS = ("tri_dia", "tri_dia_inv", "dia_sddmm", "gather")
 TRI_RANDOM_KERNELS = ("chunk_sddmm", "gather")
 LSE_CHUNK = ("lse_rows", "lse_rows_bwd")
 FUSED = ("chunk_bwd_pass1", "chunk_bwd_pass2")
 GRAD_TOL = (1e-4, 1e-6)  # (rtol, atol): LSE gradients, the JAX tests' own
 FAST_REL = 1e-2  # |gradB - split| / |split| with V stored in bfloat16
 ROUTES = []             # triangular-solve routes taken, in order
-PLAIN = {"dia_spmm_plain": 0,    # K1's, K2's, K6's, K7's and K13's
+PLAIN = {"dia_spmm_plain": 0,    # K1's, K2's, K6's, K7's, K9's and K13's
          "dia_sddmm_plain": 0,   # plain versions called by their wrappers
          "chunk_spmm_plain": 0, "chunk_spmm_slab_plain": 0,
-         "chunk_sddmm_plain": 0}
+         "chunk_sddmm_plain": 0, "tri_dia_plain": 0}
 K1_PS = (128, 16, 1)    # K1's widths on the main path: stencil, p=16, matvec
 K2_PS = (128, 16, 2, 1)  # K2's: stencil, p=16, tri-stencil p=2, matvec
 K6_PS = (128, 64, 32, 16, 3)  # K6's widths timed on the random pattern
 K7_PS = (128, 64, 32, 16, 8, 3, 2, 1)  # K7's: its slab, narrow and p=1 paths
+K9_PS = (128, 2)        # K9's widths on the main path: tri-stencil
 
 
 def smi_line() -> str:
@@ -265,13 +280,15 @@ def counters():
         chunk_spmm_slab, chunk_spmv)
     from torchsparsegradutils_tpu_torch.kernels.dia import (sddmm_core,
                                                             spmm_core)
-    from torchsparsegradutils_tpu_torch.kernels.dia_tri import tri_dia_core
+    from torchsparsegradutils_tpu_torch.kernels.dia_tri import (
+        tri_dia_core, tri_dia_inv)
     from torchsparsegradutils_tpu_torch.kernels.window_gather import (
         window_gather)
     return {"dia_spmm": spmm_core, "dia_sddmm": sddmm_core,
             "gather": window_gather, "chunk_spmm": chunk_spmm,
             "chunk_sddmm": chunk_sddmm, "chunk_spmv": chunk_spmv,
-            "tri_dia": tri_dia_core, "lse_rows": lse_rows,
+            "tri_dia": tri_dia_core, "tri_dia_inv": tri_dia_inv,
+            "lse_rows": lse_rows,
             "lse_rows_bwd": lse_rows_bwd, "chunk_bwd_pass1": chunk_bwd_pass1,
             "chunk_bwd_pass2": chunk_bwd_pass2,
             "chunk_spmm_slab": chunk_spmm_slab}
@@ -293,11 +310,14 @@ def track_routes():
 
 
 def count_plain():
-    """Count calls of K1's, K2's, K6's, K7's and K13's plain versions made
-    through their kernels modules (their wrappers' CPU paths) in
-    ``PLAIN``: a step on the card must make none."""
-    from torchsparsegradutils_tpu_torch.kernels import chunk_spmm, dia
-    for mod, key, name in ((dia, "dia_spmm_plain", "spmm_core_plain"),
+    """Count calls of K1's, K2's, K6's, K7's, K9's (the solve's and the
+    block inverses') and K13's plain versions made through their kernels
+    modules (their wrappers' CPU paths) in ``PLAIN``: a step on the card
+    must make none."""
+    from torchsparsegradutils_tpu_torch.kernels import chunk_spmm, dia, dia_tri
+    for mod, key, name in ((dia_tri, "tri_dia_plain", "tri_dia_core_plain"),
+                           (dia_tri, "tri_dia_plain", "_build_diag_inv"),
+                           (dia, "dia_spmm_plain", "spmm_core_plain"),
                            (dia, "dia_sddmm_plain", "sddmm_core_plain"),
                            (chunk_spmm, "chunk_spmm_plain",
                             "chunk_spmm_plain"),
@@ -332,7 +352,8 @@ def read_counters(label, expect, forbid=()):
     if missing:
         raise AssertionError(f"{label}: kernels {missing} never launched")
     forbid = tuple(forbid) + tuple(f"{k}_plain" for k in ("dia_spmm",
-                                                          "dia_sddmm")
+                                                          "dia_sddmm",
+                                                          "tri_dia")
                                    if k in expect)
     if {"chunk_spmm", "chunk_spmm_slab"} & set(expect):
         forbid += ("chunk_spmm_plain", "chunk_spmm_slab_plain")
@@ -683,26 +704,55 @@ def check_k7_cases(plan, rplan, Y, X, dt_name, gen):
 
 
 def check_tri_small(dt, name, gen, dev):
-    """The triangular kernel on small awkward shapes: n not a multiple of
-    the block, p = 1 and 3, unit, positive offsets (ignored), the span at a
-    block boundary, and 200 offsets (the generic loops)."""
+    """The triangular kernel on small awkward shapes, each launch twice
+    and bitwise equal, against its plain version at the kernel's row block
+    nb: n not a multiple of 256, p = 1 and 3, unit, positive offsets
+    (ignored), the span at a block boundary, 200 offsets; and the block
+    walk's edges: n = 3 nb - 1, 3 nb and 3 nb + 1, span nb and nb + 1
+    (in the block or the one before) and 2 nb + 1 (the boundary between
+    late and early terms), offsets -(nb - 1) and -nb, p = TP - 1, TP,
+    TP + 1 and 2 TP + 1, unit with no offset 0, a band of 8,000 (too wide
+    in float64 for the walk's shared-memory ring and grid rows).  The
+    block inverses against ``_build_diag_inv`` on each."""
     import numpy as np
     import torch
-    from torchsparsegradutils_tpu_torch.kernels.dia_tri import (
-        tri_dia_core, tri_dia_core_plain)
-    for n, p, offs, unit in ((300, 1, [-130, -17, -3, 0], False),
-                             (500, 3, [-256, -1, 0, 5], False),
-                             (777, 5, [-300, -2, -1, 7], True),
-                             (1000, 2, list(range(-200, 1)), False)):
+    from torchsparsegradutils_tpu_torch.kernels import dia_tri
+    nb, tp = dia_tri.KERNEL_NB, 2       # the walk's row block, column tile
+    acc = torch.float64 if dt == torch.float64 else torch.float32
+    for n, p, offs, unit in (
+            (300, 1, [-130, -17, -3, 0], False),
+            (500, 3, [-256, -1, 0, 5], False),
+            (777, 5, [-300, -2, -1, 7], True),
+            (1000, 2, list(range(-200, 1)), False),
+            (3 * nb - 1, tp - 1, [-nb, -(nb - 1), -2, -1, 0], False),
+            (3 * nb, tp, [-(nb + 1), -nb, -1, 0], False),
+            (3 * nb + 1, tp + 1, [-(nb + 1), -(nb - 1), -3, 0, 2], False),
+            (5 * nb + 1, tp, [-nb, -7, -1], True),
+            (4 * nb, 2 * tp + 1,
+             [-(2 * nb + 1), -2 * nb, -(2 * nb - 1), -(nb + 1), -1, 0],
+             False),
+            (9000, 3, [-8000, -4000, -1, 0], False)):
         g = torch.randn(n, len(offs), generator=gen) * 0.1
         if 0 in offs:
             k0 = offs.index(0)
             g[:, k0] = 1 + g.abs().sum(1) - g[:, k0].abs()
         g = g.to(dev, dt)
         b = torch.randn(n, p, generator=gen).to(dev, dt)
-        close(f"tri_dia small n={n} p={p} K={len(offs)} unit={unit}",
-              tri_dia_core(np.array(offs), g, b, unit=unit),
-              tri_dia_core_plain(np.array(offs), g, b, unit=unit), name)
+        o = np.array(offs)
+        label = f"n={n} p={p} K={len(offs)} unit={unit} nb={nb}"
+        got = dia_tri.tri_dia_core(o, g, b, unit=unit)
+        if not torch.equal(got, dia_tri.tri_dia_core(o, g, b, unit=unit)):
+            raise AssertionError(f"tri_dia small {label} [{name}]: two "
+                                 "launches differ")
+        close(f"tri_dia small {label} (repeats bitwise)", got,
+              dia_tri.tri_dia_core_plain(o, g, b, unit=unit, nb=nb), name)
+        inv = dia_tri.tri_dia_inv(o, g, unit=unit)
+        if not torch.equal(inv, dia_tri.tri_dia_inv(o, g, unit=unit)):
+            raise AssertionError(f"tri_dia_inv small {label} [{name}]: two "
+                                 "launches differ")
+        close(f"tri_dia_inv small {label} (repeats bitwise)", inv,
+              dia_tri._build_diag_inv(o, g, n, -(-n // nb), nb, unit, acc),
+              name)
 
 
 def distinct_keys(rng, space, k):
@@ -1219,24 +1269,185 @@ def k13_times(R, plans, B, dev):
     return times
 
 
+def k9_times(T, tplan, tgrid, TB, G, dev):
+    """K9's time per call of ``tri_dia_core`` (CUDA events, and the
+    profiled device time of every kernel whose name holds ``tri_dia``:
+    the block inverses and the walk, and each alone) on the tri-stencil
+    at each p of ``K9_PS`` and for the transposed solve that the backward
+    runs at p = 128, each beside its bound, its plain version (at the
+    kernel's row block, where the checkout's plain version takes one) and
+    ``torch.triangular_solve`` on the CSR (one call; not for the
+    transposed solve); and, where the checkout builds the block inverses
+    in a kernel of their own, that build alone."""
+    import numpy as np
+    import torch
+    from torchsparsegradutils_tpu_torch.kernels import dia_tri
+    n, K = tgrid.shape
+    offs = np.asarray(tplan.offsets)
+    cells = valid_cells(offs.tolist(), n, n)
+    csr = torch.sparse_csr_tensor(
+        torch.from_numpy(T.indptr_np().astype("int64")).to(dev),
+        T.cols_t(), T.values, (n, n))
+    # the backward's solve, Aᵀ x = G, reduced to the lower core as
+    # ops/triangular_solve.py:_tri_dia_forward reduces it
+    gt = tplan.geo.shift(tgrid).flip(0, 1).contiguous()
+    offs_t = np.sort(-np.asarray(tplan.geo.T.offsets))
+    # a checkout from before the block inverses has one row block, NB
+    inv = getattr(dia_tri, "tri_dia_inv", None)
+    nb = dia_tri.NB if inv is None else dia_tri.KERNEL_NB
+    kw = {} if inv is None else {"nb": nb}
+    out = {"plain_nb": nb}
+    for label, o, g, X in ([(f"p{p}", offs, tgrid, TB[:, :p].contiguous())
+                            for p in K9_PS]
+                           + [("transpose_p128", offs_t, gt,
+                               G.flip(0).contiguous())]):
+        p = X.shape[1]
+        b_ms, b_by = bound((n * K + 2 * n * p) * 4, 2 * cells * p)
+
+        def call():
+            return dia_tri.tri_dia_core(o, g, X, unit=False)
+        row = {"ms": time_ms(call, reps=10),
+               "device_ms": device_ms(call, "tri_dia", reps=10),
+               "walk_device_ms": device_ms(call, "tri_dia_kernel", reps=10),
+               "plain_ms": time_ms(
+                   lambda: dia_tri.tri_dia_core_plain(o, g, X, unit=False,
+                                                      **kw),
+                   reps=2, warmup=1),
+               "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+        if inv is not None:
+            row["inverse_device_ms"] = device_ms(call, "tri_dia_inv",
+                                                 reps=10)
+        if not label.startswith("transpose"):
+            row["library_ms"] = time_ms(
+                lambda: torch.triangular_solve(X, csr, upper=False),
+                reps=1, warmup=1)
+        out[label] = row
+    if inv is not None:
+        out["inverse_alone"] = {
+            "nb": nb,
+            "ms": time_ms(lambda: inv(offs, tgrid, unit=False)),
+            "device_ms": device_ms(lambda: inv(offs, tgrid, unit=False),
+                                   "tri_dia_inv"),
+            "plain_ms": time_ms(lambda: dia_tri._build_diag_inv(
+                offs, tgrid, n, -(-n // nb), nb, False, torch.float32),
+                reps=5),
+            "scratch_mib": -(-n // nb) * nb * nb * 4 / 2**20}
+    return out
+
+
+def k9_steps(A, H, R, T, plan1, B, G, TB, gen, dev, steps):
+    """``--k9``'s steps: those that launch K9 (tri-stencil fwd and fwd+bwd
+    at p = 128 and 2, its upper mirror and its transposed solve, fwd+bwd
+    at p = 128), after recording the tri-stencil p = 128 fwd+bwd step's
+    peak extra memory in ``steps``; then those that do not, for control
+    (stencil, hybrid85, random, tri-random p = 2, the bidir LSE fwd+bwd
+    on lse-random and lse-skewed, sharded-chunk and sharded-dia at world
+    size 1, the flagship train step)."""
+    import numpy as np
+    import torch
+    from torchsparsegradutils_tpu_torch import (SparseCSR,
+                                                sparse_bidir_logsumexp,
+                                                sparse_mm,
+                                                sparse_triangular_solve)
+    from torchsparsegradutils_tpu_torch.parallel import (
+        init_params, make_model, make_train_step, sharded_chunk_spmm,
+        sharded_dia_spmm)
+    from torchsparsegradutils_tpu_torch.utils.random_sparse import (
+        rand_sparse_tri, stencil_sparse)
+
+    def tri(M, X, Y, **kw):
+        return chained_step(lambda v, b: sparse_triangular_solve(
+            M.with_data(v), b, **kw), M.values, X, Y)
+
+    def tri_fwd(M, X, **kw):
+        state = {"b": X.clone()}
+
+        def step():
+            with torch.no_grad():
+                state["b"] = state["b"] + 1e-6 * sparse_triangular_solve(
+                    M, state["b"], **kw)
+        return step
+
+    def mm(M, p=P):
+        return chained_step(lambda v, b: sparse_mm(M.with_data(v), b),
+                            M.values, B[:, :p].contiguous(),
+                            G[:, :p].contiguous())
+
+    def lse(M):
+        v = M.values.detach().clone().requires_grad_(True)
+
+        def step():
+            outs = sparse_bidir_logsumexp(M.with_data(v))
+            torch.autograd.grad(outs, v, outs)
+        return step
+
+    TB2, G2 = TB[:, :2].contiguous(), G[:, :2].contiguous()
+    Tu = stencil_sparse((N, N), [-o for o in TRI_OFFSETS],
+                        well_conditioned=True, generator=gen, device=dev)
+    step = tri(T, TB, G, upper=False)
+    step()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base_mib = torch.cuda.memory_allocated() / 2**20
+    for _ in range(3):
+        step()
+    steps["tri_stencil_fwd_bwd_peak_extra_mib"] = \
+        torch.cuda.max_memory_allocated() / 2**20 - base_mib
+    todo = [("tri_stencil_p128", step),
+            ("tri_stencil_p128_fwd", tri_fwd(T, TB, upper=False)),
+            ("tri_stencil_p2", tri(T, TB2, G2, upper=False)),
+            ("tri_stencil_p2_fwd", tri_fwd(T, TB2, upper=False)),
+            ("tri_stencil_upper_p128", tri(Tu, TB, G, upper=True)),
+            ("tri_stencil_transpose_p128", tri(T, TB, G, upper=False,
+                                               transpose=True))]
+    TR = rand_sparse_tri((N, N), NNZ_TRI_RANDOM, upper=False, layout="csr",
+                         generator=gen, device=dev)
+    s_rows, s_cols = skewed_pattern(N)
+    s_indptr = np.concatenate([[0], np.cumsum(np.bincount(s_rows,
+                                                          minlength=N))])
+    S = SparseCSR(s_indptr, s_cols, torch.randn(len(s_cols), generator=gen),
+                  (N, N), device=dev)
+    f = sharded_dia_spmm(A)
+    enc = make_model((1, 48, 48, 48), radius=1.5)
+    state = {"p": init_params(enc, torch.Generator().manual_seed(0), dev)}
+    x = torch.randn(128, enc.volume_numel, generator=gen)
+    x[:, 1:] += 0.5 * x[:, :-1].clone()
+    x = x.to(dev)
+    train = make_train_step(enc, 1, 1, lr=1e-2)
+
+    def flagship():
+        state["p"], _ = train(state["p"], x)
+    todo += [("stencil", mm(A)), ("hybrid85", mm(H)), ("random", mm(R)),
+             ("tri_random_p2", tri(TR, TB2, G2, upper=False)),
+             ("lse_random_bidir", lse(R)), ("lse_skewed_bidir", lse(S)),
+             ("sharded_chunk", chained_step(
+                 lambda v, b: sharded_chunk_spmm(plan1, v, b), R.values, B,
+                 G)),
+             ("sharded_dia", chained_step(f, A.values, B, G)),
+             ("flagship_train", flagship)]
+    return todo
+
+
 def compare(which) -> int:
-    """``--k1`` / ``--k2`` / ``--k6`` / ``--k7``: that kernel's times
-    (:func:`k1_times`, :func:`k2_times`, :func:`k7_times`; for K6
-    :func:`k6_times` and K13's :func:`k13_times`, whole and per slab of
-    4) and the times of the steps that launch it, wall and profiled
-    device time, nothing else: for K1 and K2 stencil, hybrid85, stencil
-    p=16 and sharded-dia fwd+bwd (K2 also tri-stencil p = 2); for K6 and
-    K7 random p=128, hybrid85, sharded-chunk at world size 1 and public
-    ``sddmm`` on the random pattern (K7 also random p=1, tri-random p=2
-    and random-fused, whose K12a computes K7's gradA).  Run in turns from
-    two checkouts to compare them on one card.  Prints one JSON line."""
+    """``--k1`` / ``--k2`` / ``--k6`` / ``--k7`` / ``--k9``: that kernel's
+    times (:func:`k1_times`, :func:`k2_times`, :func:`k7_times`,
+    :func:`k9_times`; for K6 :func:`k6_times` and K13's
+    :func:`k13_times`, whole and per slab of 4) and the times of the
+    steps that launch it, wall and profiled device time, nothing else:
+    for K1 and K2 stencil, hybrid85, stencil p=16 and sharded-dia
+    fwd+bwd (K2 also tri-stencil p = 2); for K6 and K7 random p=128,
+    hybrid85, sharded-chunk at world size 1 and public ``sddmm`` on the
+    random pattern (K7 also random p=1, tri-random p=2 and random-fused,
+    whose K12a computes K7's gradA); for K9 :func:`k9_steps`.  Run in
+    turns from two checkouts to compare them on one card.  Prints one
+    JSON line."""
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     from torchsparsegradutils_tpu_torch import (sddmm, sparse_mm,
                                                 sparse_triangular_solve)
-    from torchsparsegradutils_tpu_torch.kernels import _build, dia
+    from torchsparsegradutils_tpu_torch.kernels import _build, dia, dia_tri
     from torchsparsegradutils_tpu_torch.kernels.chunk_spmm import (
         build_chunk_plan)
     from torchsparsegradutils_tpu_torch.kernels.dia import (build_dia_plan,
@@ -1255,12 +1466,19 @@ def compare(which) -> int:
     G = torch.randn(N, P, generator=gen).to(dev)
     H = hybrid_sparse((N, N), STENCIL_OFFSETS, NNZ_HYBRID, dia_coverage=0.85,
                       generator=gen, device=dev)
-    if which in ("k6", "k7"):
+    if which in ("k6", "k7", "k9"):
         R = rand_sparse((N, N), NNZ_RANDOM, layout="csr", generator=gen,
                         device=dev)
         cplan = build_chunk_plan(R.row_sa(), R.col_sa(), N, N)
         plan1 = build_sharded_chunk_plan(R, 1)
-    if which == "k6":
+    if which == "k9":
+        T = stencil_sparse((N, N), TRI_OFFSETS, well_conditioned=True,
+                           generator=gen, device=dev)
+        tplan = build_dia_plan(T.row_sa(), T.col_sa(), N, N)
+        TB = torch.randn(N, P, generator=gen).to(dev)
+        res = {"k9": k9_times(T, tplan, values_to_grid(tplan, T.values), TB,
+                              G, dev)}
+    elif which == "k6":
         res = {"k6": k6_times(R, cplan, H, B, G, dev),
                "k13": k13_times(R, (plan1, build_sharded_chunk_plan(R, 4)),
                                 B, dev)}
@@ -1305,6 +1523,8 @@ def compare(which) -> int:
                          TR.values, B[:, :2].contiguous(),
                          G[:, :2].contiguous())),
                      ("random_fused", fused(step(R, P)))]
+        elif which == "k9":
+            todo = k9_steps(A, H, R, T, plan1, B, G, TB, gen, dev, steps)
         elif which != "k6":
             f = sharded_dia_spmm(A)
             todo = [("stencil", step(A, P)), ("hybrid85", step(H, P)),
@@ -1318,11 +1538,18 @@ def compare(which) -> int:
                                                      upper=False),
                 T.values, B[:, :2].contiguous(), G[:, :2].contiguous())))
         for label, fn in todo:
-            steps[f"{label}_fwd_bwd_ms"] = time_ms(
-                fn, reps=10 if label.startswith("tri") else 50,
+            name = label if label.endswith("_fwd") else f"{label}_fwd_bwd"
+            if which == "k9":
+                before = dia_tri.tri_dia_core.launches
+                fn()
+                torch.cuda.synchronize()
+                steps[f"{name}_k9_launches"] = \
+                    dia_tri.tri_dia_core.launches - before
+            steps[f"{name}_ms"] = time_ms(
+                fn, reps=10 if label.startswith(("tri", "flagship")) else 50,
                 warmup=1 if label.startswith("tri_random") else 3)
             # the device's share, which the host's pace does not move
-            steps[f"{label}_fwd_bwd_device_ms"] = device_ms(fn, "", reps=10)
+            steps[f"{name}_device_ms"] = device_ms(fn, "", reps=10)
     res["steps"] = steps
     print(json.dumps({f"{which}_compare": res, "card": card}))
     return 0
@@ -1554,8 +1781,9 @@ def main() -> int:
     from torchsparsegradutils_tpu_torch.kernels.dia import (
         build_dia_plan, sddmm_core, sddmm_core_plain, spmm_core,
         spmm_core_plain, values_to_grid)
+    from torchsparsegradutils_tpu_torch.kernels import dia_tri
     from torchsparsegradutils_tpu_torch.kernels.dia_tri import (
-        tri_dia_core, tri_dia_core_plain)
+        tri_dia_core, tri_dia_core_plain, tri_dia_inv)
     from torchsparsegradutils_tpu_torch.kernels.window_gather import (
         window_gather, window_gather_plain)
     from torchsparsegradutils_tpu_torch.ops import triangular_solve as ts
@@ -1645,19 +1873,33 @@ def main() -> int:
             raise AssertionError("chunk_spmm: an empty row is not 0")
         if dt == torch.float32:
             err = {"dia_spmm": e1, "dia_sddmm": e3, "gather": 0.0, **ec}
-        # the triangular kernel on the stencil's lower triangle
+        # the triangular kernel on the stencil's lower triangle, against
+        # its plain version at the kernel's row block; its block inverses
         tg = tgrid.to(dt)
+        tacc = torch.float64 if dt == torch.float64 else torch.float32
+        tnb = dia_tri.KERNEL_NB
         for tb in (TB.to(dt), TB[:, :2].contiguous().to(dt)):
             got = tri_dia_core(tplan.offsets, tg, tb, unit=False)
             again = tri_dia_core(tplan.offsets, tg, tb, unit=False)
             if not torch.equal(got, again):
                 raise AssertionError(f"tri_dia p={tb.shape[1]} [{name}]: "
                                      "two launches differ")
-            e = close(f"tri_dia p={tb.shape[1]} (repeats bitwise)", got,
-                      tri_dia_core_plain(tplan.offsets, tg, tb, unit=False),
-                      name)
+            e = close(f"tri_dia p={tb.shape[1]} nb={tnb} (repeats bitwise)",
+                      got, tri_dia_core_plain(tplan.offsets, tg, tb,
+                                              unit=False, nb=tnb), name)
             if dt == torch.float32:
                 err["tri_dia"] = max(err.get("tri_dia", 0.0), e)
+        inv = tri_dia_inv(tplan.offsets, tg, unit=False)
+        if not torch.equal(inv, tri_dia_inv(tplan.offsets, tg, unit=False)):
+            raise AssertionError(f"tri_dia_inv [{name}]: two launches "
+                                 "differ")
+        e = close(f"tri_dia_inv nb={tnb} (repeats bitwise)", inv,
+                  dia_tri._build_diag_inv(tplan.offsets, tg, N,
+                                          -(-N // tnb), tnb, False, tacc),
+                  name)
+        del inv
+        if dt == torch.float32:
+            err["tri_dia_inv"] = e
         check_tri_small(dt, name, gen, dev)
         # the chunk LSE kernels on the skewed and random rows and a small
         # awkward pattern; the fused backward at p = 128 and p = 3
@@ -1953,6 +2195,8 @@ def main() -> int:
     print(json.dumps({"k6_times": k6, "card": card}))
     k7 = k7_times(R, cplan, H, B, G, dev)
     print(json.dumps({"k7_times": k7, "card": card}))
+    k9 = k9_times(T, tplan, tgrid, TB, GT, dev)
+    print(json.dumps({"k9_times": k9, "card": card}))
     es = 4
     n, m, K = N, N, plan.K
     cells = valid_cells(plan.offsets.tolist(), n, m)
@@ -2025,14 +2269,29 @@ def main() -> int:
     tcsr = torch.sparse_csr_tensor(
         torch.from_numpy(T.indptr_np().astype("int64")).to(dev),
         T.cols_t(), T.values, (n, n))
-    spec.append(
+    tnb = dia_tri.KERNEL_NB
+    tnblk = -(-n // tnb)
+    in_block = [o for o in tplan.offsets.tolist() if -tnb < o <= 0]
+    spec += [
         ("tri_dia", "torchsparsegradutils_tpu_torch/csrc/tri_dia.cu",
          "torchsparsegradutils_tpu/kernels/dia_tri.py:150 (K9 "
          "tri_dia_core)", launches_t,
          lambda: tri_dia_core(tplan.offsets, tgrid, TB, unit=False),
-         lambda: tri_dia_core_plain(tplan.offsets, tgrid, TB, unit=False),
+         lambda: tri_dia_core_plain(tplan.offsets, tgrid, TB, unit=False,
+                                    nb=tnb),
          lambda: torch.triangular_solve(TB, tcsr, upper=False),
-         bound((n * Kt + 2 * n * P) * es, 2 * tcells * P)))
+         bound((n * Kt + 2 * n * P) * es, 2 * tcells * P)),
+        # the block inverses: the grid's in-block columns read, Dinv
+        # written; forward substitution, nb - c rows of each column c
+        ("tri_dia_inv", "torchsparsegradutils_tpu_torch/csrc/tri_dia.cu",
+         "torchsparsegradutils_tpu/kernels/dia_tri.py:50 (K9's block "
+         "inverses, _build_diag_inv)", launches_t,
+         lambda: tri_dia_inv(tplan.offsets, tgrid, unit=False),
+         lambda: dia_tri._build_diag_inv(tplan.offsets, tgrid, n, tnblk,
+                                         tnb, False, torch.float32),
+         None, bound((n * len(in_block) + tnblk * tnb * tnb) * es,
+                     tnblk * tnb * (tnb + 1) // 2
+                     * (2 * (len(in_block) - 1) + 1)))]
     # K10 and K11 on lse-skewed (include_zeros, as sparse_logsumexp's
     # default), K12a and K12b on the random pattern at p = 128
     sm = splan.maps(dev)
@@ -2088,7 +2347,19 @@ def main() -> int:
             "max_abs_err": err[name], "ms": time_ms(kern, reps=reps),
             "plain_ms": time_ms(plain, reps=reps), "bound_ms": b_ms,
             "bound_by": b_by, "library_ms": None}
-        if lib is None:
+        if lib is None and name == "tri_dia_inv":
+            row["library_note"] = (
+                "no single PyTorch call builds the block inverses from the "
+                "grid; torch.linalg.solve_triangular on the built blocks "
+                "is library_solve_ms")
+            D = torch.linalg.inv(dia_tri._build_diag_inv(
+                tplan.offsets, tgrid, n, tnblk, tnb, False, torch.float32))
+            eye = torch.eye(tnb, device=dev).expand(tnblk, tnb, tnb)
+            row["library_solve_ms"] = time_ms(
+                lambda: torch.linalg.solve_triangular(D, eye, upper=False))
+            row["device_ms"] = device_ms(kern, "tri_dia_inv")
+            del D
+        elif lib is None:
             row["library_note"] = ("no single PyTorch call computes "
                                    "exp(v - out[row]) * g[row] per entry")
         else:
@@ -2108,6 +2379,8 @@ def main() -> int:
             row["per_launch"] = k6
         if name == "chunk_sddmm":
             row["per_launch"] = k7
+        if name == "tri_dia":
+            row["per_launch"] = k9
         if name == "chunk_bwd_pass1":
             row["device_ms"] = device_ms(kern, "bwd_rows")
         if name == "gather":
@@ -2127,8 +2400,8 @@ def main() -> int:
 
 if __name__ == "__main__":
     t0 = time.perf_counter()
-    mode = {"--k1": "k1", "--k2": "k2", "--k6": "k6", "--k7": "k7"}.get(
-        " ".join(sys.argv[1:]))
+    mode = {"--k1": "k1", "--k2": "k2", "--k6": "k6", "--k7": "k7",
+            "--k9": "k9"}.get(" ".join(sys.argv[1:]))
     rc = compare(mode) if mode else main()
     print(f"chip_smoke: {time.perf_counter() - t0:.1f} s", file=sys.stderr)
     sys.exit(rc)

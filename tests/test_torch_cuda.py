@@ -29,8 +29,9 @@ from torchsparsegradutils_tpu_torch.kernels.dia import (sddmm_core,
                                                         sddmm_core_plain,
                                                         spmm_core,
                                                         spmm_core_plain)
+from torchsparsegradutils_tpu_torch.kernels import dia_tri
 from torchsparsegradutils_tpu_torch.kernels.dia_tri import (
-    tri_dia_core, tri_dia_core_plain)
+    tri_dia_core, tri_dia_core_plain, tri_dia_inv)
 from torchsparsegradutils_tpu_torch.kernels.window_gather import (
     window_gather, window_gather_plain)
 from torchsparsegradutils_tpu_torch.types import StaticArray
@@ -306,30 +307,77 @@ def test_chunk_wrappers_refuse_what_the_kernels_do_not_take(dev):
         chunk_spmm(ip, ip[:2].cpu(), x[0, :2], x)
 
 
-@pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("n,p,offsets,unit", [
+NB = dia_tri.KERNEL_NB   # the walk's row block
+TP = 2                   # and its column tile (csrc/tri_dia.cu TP)
+TRI_CASES = [
     (300, 1, [-130, -17, -3, 0], False),     # n not a multiple of 256, p = 1
     (500, 3, [-256, -1, 0, 5], False),       # span at a block boundary
     (777, 5, [-300, -2, -1, 7], True),       # unit; p not a multiple of 4
     (2000, 130, [-2500 + 2000 - 1, -51, -50, -1, 0, 1, 51], False),
-    (1000, 2, list(range(-200, 1)), False)])  # 200 offsets: generic loops
-def test_tri_dia_kernel_matches_plain_and_repeats_bitwise(dev, dtype, n, p,
-                                                          offsets, unit):
+    (1000, 2, list(range(-200, 1)), False),  # 200 offsets
+    # the block walk's edges: n = 3 nb - 1, 3 nb, 3 nb + 1; span nb and
+    # nb + 1 (in the block or the one before) and 2 nb + 1 (late against
+    # early terms); offsets -(nb - 1) and -nb; p = TP - 1, TP, TP + 1;
+    # unit with no offset 0
+    (3 * NB - 1, TP - 1, [-NB, -(NB - 1), -2, -1, 0], False),
+    (3 * NB, TP, [-(NB + 1), -NB, -1, 0], False),
+    (3 * NB + 1, TP + 1, [-(NB + 1), -(NB - 1), -3, 0, 2], False),
+    (5 * NB + 1, TP, [-NB, -7, -1], True),
+    (4 * NB, 2 * TP + 1,
+     [-(2 * NB + 1), -2 * NB, -(2 * NB - 1), -(NB + 1), -1, 0], False),
+    # the walk without its shared-memory ring and grid rows (early terms
+    # and grid values read from device memory): a band too wide for them
+    # in float64; 201 offsets above, and the widest the kernel takes
+    # (span SPAN_CAP, MAX_DIAGS offsets, 63 of them in the inverses) in
+    # every dtype
+    (9000, 3, [-8000, -4000, -1, 0], False),
+    (9000, 2, [-8000] + list(range(-200, 1)), False),
+    (8500, 3, [-dia_tri.SPAN_CAP] + list(range(-254, 1)), False)]
+
+
+def tri_case(dev, dtype, n, p, offsets):
+    """A diagonally dominant grid (the solve stays bounded) and B."""
     g = torch.Generator().manual_seed(n + p)
     grid = torch.randn(n, len(offsets), generator=g) * 0.1
-    if 0 in offsets:        # diagonally dominant: the solve stays bounded
+    if 0 in offsets:
         k0 = offsets.index(0)
         grid[:, k0] = 1 + grid.abs().sum(1) - grid[:, k0].abs()
-    grid = grid.to(dev, dtype)
-    B = torch.randn(n, p, generator=g).to(dev, dtype)
+    return (grid.to(dev, dtype),
+            torch.randn(n, p, generator=g).to(dev, dtype))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("n,p,offsets,unit", TRI_CASES)
+def test_tri_dia_kernel_matches_plain_and_repeats_bitwise(dev, dtype, n, p,
+                                                          offsets, unit):
+    """K9 (block inverses, then the walk) against its plain version at
+    the walk's row block."""
+    grid, B = tri_case(dev, dtype, n, p, offsets)
     offs = np.array(offsets)
-    before = tri_dia_core.launches
+    before = tri_dia_core.launches, tri_dia_inv.launches
     got = tri_dia_core(offs, grid, B, unit=unit)
     again = tri_dia_core(offs, grid, B, unit=unit)
     torch.cuda.synchronize()
-    assert tri_dia_core.launches == before + 2
+    assert (tri_dia_core.launches, tri_dia_inv.launches) == (
+        before[0] + 2, before[1] + 2)
     assert torch.equal(got, again)
-    close(got, tri_dia_core_plain(offs, grid, B, unit=unit), dtype)
+    close(got, tri_dia_core_plain(offs, grid, B, unit=unit, nb=NB), dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("n,p,offsets,unit", TRI_CASES[::2] + TRI_CASES[7:8])
+def test_tri_dia_inv_matches_plain_and_repeats_bitwise(dev, dtype, n, p,
+                                                       offsets, unit):
+    """K9's block inverses against ``_build_diag_inv`` (zero above the
+    diagonal, unit diagonal with ``unit`` and on the padded rows)."""
+    grid, _ = tri_case(dev, dtype, n, p, offsets)
+    offs = np.array(offsets)
+    got = tri_dia_inv(offs, grid, unit=unit)
+    assert torch.equal(got, tri_dia_inv(offs, grid, unit=unit))
+    acc = torch.float64 if dtype == torch.float64 else torch.float32
+    assert got.shape == (-(-n // NB), NB, NB) and got.dtype == acc
+    close(got, dia_tri._build_diag_inv(offs, grid, n, -(-n // NB), NB, unit,
+                                       acc), dtype)
 
 
 @pytest.mark.parametrize("upper", [False, True])

@@ -142,16 +142,36 @@ def test_dia_core_plain_matches_jax_kernel(monkeypatch, upper, unit,
                                                             atol=2e-5))
 
 
-@pytest.mark.parametrize("n,offsets,p", [
-    (300, [-130, -17, -3, 0], 1),        # n not a multiple of 256, p = 1
-    (500, [-256, -1, 0, 5], 3)])         # span at a block boundary, an upper
-def test_dia_core_plain_matches_jax_kernel_awkward(n, offsets, p):
+_AWKWARD = [(300, [-130, -17, -3, 0], 1),   # n not a multiple of 256, p = 1
+            (500, [-256, -1, 0, 5], 3)]    # span at a block boundary, an upper
+
+
+NB = dia_tri.KERNEL_NB   # the CUDA walk's row block
+TP = 2                   # and its column tile (csrc/tri_dia.cu TP)
+
+
+@pytest.mark.parametrize("n,offsets,p,nb", [
+    *(pytest.param(*case, None, id=f"{case[0]}-offsets{i}-{case[2]}")
+      for i, case in enumerate(_AWKWARD)),
+    # the plain version at the CUDA walk's row block, as the card holds
+    # the kernel against it
+    *(pytest.param(*case, NB, id=f"{case[0]}-offsets{i}-{case[2]}-nb{NB}")
+      for i, case in enumerate(_AWKWARD)),
+    # the walk's edges: n = 3 nb + 1, offsets -(nb + 1), -nb and
+    # -(nb - 1) around a block, -(2 nb + 1) past the two blocks of solved
+    # rows it keeps (late against early terms), p = TP + 1
+    pytest.param(3 * NB + 1, [-2 * NB - 1, -NB - 1, -NB, -NB + 1, -1, 0],
+                 TP + 1, NB, id=f"edges-nb{NB}")])
+def test_dia_core_plain_matches_jax_kernel_awkward(n, offsets, p, nb):
+    """The plain version (through ``tri_dia_core``'s CPU path, or at the
+    row block ``nb``) against the JAX kernel (256-row blocks)."""
     rng = np.random.default_rng(n)
     grid = rng.standard_normal((n, len(offsets))).astype(np.float32)
     grid[:, offsets.index(0)] = 4.0 + np.abs(grid[:, offsets.index(0)])
     B = rhs(n, p, n + 1)
-    got = dia_tri.tri_dia_core(np.array(offsets), torch.from_numpy(grid),
-                               torch.from_numpy(B), unit=False)
+    args = (np.array(offsets), torch.from_numpy(grid), torch.from_numpy(B))
+    got = dia_tri.tri_dia_core(*args, unit=False) if nb is None else \
+        dia_tri.tri_dia_core_plain(*args, unit=False, nb=nb)
     ref = jdt.tri_dia_core(np.array(offsets), jnp.asarray(grid),
                            jnp.asarray(B), unit=False)
     assert got.shape == (n, p)
@@ -167,6 +187,28 @@ def test_dia_core_gates_follow_jax():
     got = dia_tri.tri_dia_core(np.array([-1, 0]), grid.double(), B.double(),
                                unit=False)
     assert got.dtype == torch.float64         # float64 runs here
+
+
+@pytest.mark.parametrize("offsets", [
+    (-2500, -2499, -2451, -2450, -2449, -2401, -51, -50, -49, -3, -2, -1, 0),
+    tuple(range(-255, 1)),
+    (-8192, -NB, -(NB - 1), -1, 3),
+    (0, 2)], ids=["tri-stencil", "256-offsets", "no-diagonal", "no-lower"])
+def test_dia_kernel_meta_orders_offsets_as_the_kernels_read_them(offsets):
+    """The CUDA kernels' offset table: the strictly-lower offsets' grid
+    columns, then their distances, farthest first; how many lie outside
+    a block's inverse (d >= the walk's row block); offset 0's column; the
+    band's span."""
+    km = dia_tri._kernel_meta(offsets, torch.device("cpu"))
+    ks = [k for k, o in enumerate(offsets) if o < 0]
+    ds = [-offsets[k] for k in ks]
+    assert km.meta.tolist() == ks + ds and ds == sorted(ds, reverse=True)
+    assert km.nk == len(ks)
+    assert km.ni == sum(1 for d in ds if d >= NB)
+    assert all(d >= NB for d in ds[:km.ni])
+    assert all(0 < d < NB for d in ds[km.ni:])
+    assert km.k0 == (offsets.index(0) if 0 in offsets else -1)
+    assert km.span == max(ds, default=0)
 
 
 # --------------------------------------------------------------------------

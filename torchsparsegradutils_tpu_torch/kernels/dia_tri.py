@@ -14,15 +14,18 @@ offset-0 column is not read.  Upper-triangular and transposed solves
 reduce to this lower core by flips and the grid shift
 (``ops/triangular_solve.py``).
 
-:func:`tri_dia_core` launches the hand-written CUDA kernel
-``csrc/tri_dia.cu`` on CUDA tensors (substitution inside each block,
-the off-block terms read back from the solved rows) and runs its plain
-PyTorch version :func:`tri_dia_core_plain` on CPU tensors: the JAX
-kernel's own arithmetic, 256-row blocks in order, each
+Both the kernel and its plain version run the JAX kernel's own
+arithmetic: row blocks in order, each
 ``xb = Dinv_b · (B_b - Σ_k v[:, k] ⊙ x[r - d_k])`` with ``Dinv_b`` the
-inverse of the block's lower triangle (:func:`_build_diag_inv`).  Both
-sum in float32 for float32 and bfloat16 inputs and return the input
-dtype; float64 runs in float64.
+inverse of the block's lower triangle (:func:`_build_diag_inv`).
+:func:`tri_dia_core` launches the hand-written CUDA kernels of
+``csrc/tri_dia.cu`` on CUDA tensors: the block inverses, all blocks at
+once (:func:`tri_dia_inv`), then a walk over blocks of ``KERNEL_NB``
+rows, whose shared-memory plan the C launch picks; on CPU tensors it
+runs its plain PyTorch version :func:`tri_dia_core_plain` (256-row
+blocks, the JAX kernel's, unless ``nb`` says otherwise).  Both sum in
+float32 for float32 and bfloat16 inputs and return the input dtype;
+float64 runs in float64.
 
 Example:
     >>> import numpy as np, torch
@@ -35,7 +38,7 @@ Example:
 from __future__ import annotations
 
 from functools import lru_cache
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -43,15 +46,14 @@ import torch.nn.functional as F
 
 from . import _build
 
-__all__ = ["tri_dia_core", "tri_dia_core_plain", "SPAN_CAP", "NB"]
+__all__ = ["tri_dia_core", "tri_dia_core_plain", "tri_dia_inv", "SPAN_CAP",
+           "NB"]
 
 SPAN_CAP = 8192      # widest band the JAX kernel's rolling window takes
 NB = 256             # row-block size of the plain version (the JAX kernel's)
 MAX_DIAGS = 256      # csrc/tsgu_common.cuh MAX_DIAGS
-KERNEL_NBS = (256, 128, 64, 32)   # row blocks the CUDA kernel may take
-KERNEL_TP = 4                     # csrc/tri_dia.cu TP
-KERNEL_WIN = 3                    # csrc/tri_dia.cu WIN
-SMEM_BUDGET = 40 * 1024           # dynamic shared memory of one CTA, bytes
+KERNEL_NB = 64       # csrc/tri_dia.cu NB: rows of a block of the walk
+KERNEL_DS = 68       # csrc/tri_dia.cu DS: row stride of its block inverses
 _DTYPES = (torch.float32, torch.bfloat16, torch.float64)
 
 
@@ -78,14 +80,14 @@ def _build_diag_inv(offsets, grid, n: int, nblk: int, nb: int, unit: bool,
 
 
 def tri_dia_core_plain(offsets, grid: torch.Tensor, B: torch.Tensor, *,
-                       unit: bool) -> torch.Tensor:
-    """Plain PyTorch version of :func:`tri_dia_core` (its gates aside)."""
+                       unit: bool, nb: int = NB) -> torch.Tensor:
+    """Plain PyTorch version of :func:`tri_dia_core` (its gates aside),
+    in row blocks of ``nb``."""
     offsets = np.asarray(offsets, np.int64)
     n, K = grid.shape
     p = B.shape[1]
     acc = _build.acc_dtype(B.dtype)
     span = int(-offsets.min()) if (offsets < 0).any() else 0
-    nb = NB
     nblk = -(-n // nb)
     span_w = max(-(-span // nb) * nb, nb)
     n_pad = nblk * nb
@@ -110,31 +112,54 @@ def tri_dia_core_plain(offsets, grid: torch.Tensor, B: torch.Tensor, *,
     return x_full[span_w:span_w + n].to(B.dtype)
 
 
+class KernelMeta(NamedTuple):
+    """The offsets as ``csrc/tri_dia.cu`` reads them."""
+    meta: torch.Tensor  # grid columns of the nk strictly-lower offsets
+    #                     (offsets ascending, d descending), then their d
+    nk: int
+    ni: int             # of them with d >= KERNEL_NB: outside the inverses
+    k0: int             # grid column of offset 0, -1 without one
+    span: int           # the largest d, 0 without a lower offset
+
+
 @lru_cache(maxsize=64)
-def _kernel_meta(offsets: tuple, elem: int, device: torch.device):
-    """``(meta, nk, nf, nr, kw, nb, nlate)`` of :func:`tri_dia_core`'s
-    CUDA launch: meta holds the grid columns of the ``nk`` strictly-lower
-    offsets (ascending, so d descending) and then their d; entries
-    ``nf .. nf + nr - 1`` are the near ones beyond the kernel's register
-    window (``KERNEL_WIN < d < nb``); ``kw[d - 1]`` is the column of
-    offset -d for d in the window, or -1; ``nb`` is the largest row block
-    whose shared memory (two staging buffers and the solved rows) fits
-    ``SMEM_BUDGET``; rows below ``nlate`` of a block read some term from
-    the block before."""
+def _kernel_meta(offsets: tuple, device: torch.device) -> KernelMeta:
+    """:class:`KernelMeta` of ``offsets`` (ascending), its table on
+    ``device``."""
     ks = [k for k, off in enumerate(offsets) if off < 0]
     ds = [-offsets[k] for k in ks]
-    for nb in KERNEL_NBS:
-        nr = sum(1 for x in ds if KERNEL_WIN < x < nb)
-        if elem * nb * (2 * (KERNEL_TP + KERNEL_WIN + 1 + nr)
-                        + KERNEL_TP) <= SMEM_BUDGET:
-            break
-    nf = sum(1 for x in ds if x >= nb)
-    kw = tuple(ks[ds.index(d)] if d in ds else -1
-               for d in range(1, KERNEL_WIN + 1))
-    late = [x for x in ds if KERNEL_WIN < x < 2 * nb]
-    nlate = min(max(late), nb) if late else 0
-    meta = torch.tensor(ks + ds, dtype=torch.int64, device=device)
-    return meta, len(ks), nf, nr, kw, nb, nlate
+    return KernelMeta(
+        torch.tensor(ks + ds, dtype=torch.int64, device=device), len(ks),
+        sum(1 for d in ds if d >= KERNEL_NB),
+        offsets.index(0) if 0 in offsets else -1, max(ds, default=0))
+
+
+def tri_dia_inv(offsets, grid: torch.Tensor, *, unit: bool) -> torch.Tensor:
+    """The ``(nblk, KERNEL_NB, KERNEL_NB)`` inverses of the lower
+    triangles of the ``KERNEL_NB``-row blocks of the matrix that ``grid``
+    holds over ascending ``offsets``, in the sum dtype, zero above the
+    diagonal.  CPU tensors take :func:`_build_diag_inv`; CUDA tensors
+    launch ``csrc/tri_dia.cu``'s inverse build (one CTA a block), whose
+    rows have a stride of ``KERNEL_DS`` (the result is a view)."""
+    offsets = np.asarray(offsets, np.int64)
+    n, nb = grid.shape[0], KERNEL_NB
+    nblk = -(-n // nb)
+    acc = _build.acc_dtype(grid.dtype)
+    if grid.device.type == "cpu":
+        return _build_diag_inv(offsets, grid, n, nblk, nb, unit, acc)
+    suffix = _build.cuda_operands("tri_dia_inv", (grid,), ())
+    km = _kernel_meta(tuple(offsets.tolist()), grid.device)
+    # rows of stride KERNEL_DS, as the walk copies a block at once
+    dinv = torch.empty((nblk, nb, KERNEL_DS), dtype=acc, device=grid.device)
+    if dinv.numel() == 0:
+        return dinv[..., :nb]
+    _build.launch("tri_dia", f"tsgu_tri_dia_inv_{suffix}", grid, km.meta,
+                  dinv, n, grid.shape[1], km.nk, km.ni, km.k0, int(unit))
+    tri_dia_inv.launches += 1
+    return dinv[..., :nb]
+
+
+tri_dia_inv.launches = 0
 
 
 def tri_dia_core(offsets, grid: torch.Tensor, B: torch.Tensor, *,
@@ -146,7 +171,8 @@ def tri_dia_core(offsets, grid: torch.Tensor, B: torch.Tensor, *,
     (float16 and others; float64 runs here, unlike on the TPU).
 
     CPU tensors take :func:`tri_dia_core_plain`; CUDA tensors launch
-    ``csrc/tri_dia.cu`` and raise on what it does not take.
+    ``csrc/tri_dia.cu`` (the block inverses, :func:`tri_dia_inv`, then
+    the block walk) and raise on what it does not take.
     """
     offsets = np.asarray(offsets, np.int64)
     span = int(-offsets.min()) if (offsets < 0).any() else 0
@@ -167,14 +193,14 @@ def tri_dia_core(offsets, grid: torch.Tensor, B: torch.Tensor, *,
     if out.numel() == 0:
         return out
     acc = _build.acc_dtype(B.dtype)
-    meta, nk, nf, nr, kw, nb, nlate = _kernel_meta(
-        tuple(offsets.tolist()), acc.itemsize, B.device)
-    hits = np.nonzero(offsets == 0)[0]
-    k0 = int(hits[0]) if len(hits) else -1
+    km = _kernel_meta(tuple(offsets.tolist()), B.device)
+    if grid.data_ptr() % 16:
+        grid = grid.clone()        # the walk copies its rows 16 bytes on
+    dinv = tri_dia_inv(offsets, grid, unit=unit)
     xw = out if acc == B.dtype else torch.empty((n, p), dtype=acc,
                                                 device=B.device)
-    _build.launch("tri_dia", f"tsgu_tri_dia_{suffix}", grid, B, meta, xw,
-                  out, n, K, p, nk, nf, nr, k0, *kw, int(unit), nb, nlate)
+    _build.launch("tri_dia", f"tsgu_tri_dia_{suffix}", grid, B, dinv,
+                  km.meta, xw, out, n, K, p, km.nk, km.span)
     tri_dia_core.launches += 1
     return out
 
