@@ -121,12 +121,19 @@ fwd and fwd+bwd, the upper mirror and the transposed solve, and the
 fwd+bwd peak extra memory) with, for control, steps that do not
 (stencil, hybrid85, random, tri-random p = 2, the bidir LSE on
 lse-random and lse-skewed, sharded-chunk, sharded-dia, the flagship
-train step) as one ``k9_compare`` line.  Copied into an unpacked
-checkout of another commit (``git archive``) and run from there, each
-measures that commit's kernel the same way, so two commits compare on
-one card in turns.  ``--k9`` also counts K9's launches in one call of
-each step (``<step>_k9_launches``), so the control steps show that they
-launch none.
+train step) as one ``k9_compare`` line; ``--k10`` prints K10's and
+K11's ``k10_times`` (per launch on lse-skewed's rows and the random
+pattern's, both ``include_zeros``, with K10/K11 on the skewed hubs and
+light rows apart) and the
+lse-skewed steps that launch them with, for control, four that do not
+(lse-random and lse-stencil bidir fwd+bwd, stencil and random
+``sparse_mm`` fwd+bwd) as one ``k10_compare`` line.  Copied into an
+unpacked checkout of another commit (``git archive``) and run from
+there, each measures that commit's kernel the same way, so two commits
+compare on one card in turns.  ``--k9`` and ``--k10`` also count their
+kernels' launches in one call of each step (``<step>_k9_launches``,
+``<step>_k10_launches``, ``<step>_k11_launches``), so the control steps
+show that they launch none.
 """
 
 import contextlib
@@ -785,9 +792,8 @@ def skewed_pattern(n, hub_every=100, hub_len=1250, rest=1_544_148, seed=7):
 
 def lse_awkward_plan():
     """(3000, 200,000): empty rows, a single entry, rows of 1,024 and
-    1,025 entries (either side of the kernels' whole-block threshold),
-    one of 100,000; and its values with +inf, -inf and an all -inf
-    row."""
+    1,025 entries (packs of their own, walked by the whole block), one
+    of 100,000; and its values with +inf, -inf and an all -inf row."""
     import numpy as np
     from torchsparsegradutils_tpu_torch.kernels.chunk_spmm import (
         build_chunk_plan)
@@ -824,29 +830,34 @@ def close_inf(name, got, ref, dtype_name, tol=None):
 
 def check_lse_kernels(label, plan, vals, width, dt_name, gen):
     """K10 (both include_zeros) and K11 against their plain versions,
-    each launched twice and bitwise equal; returns the largest errors.
-    The plain versions run in float64 on the same values: a float32
-    index_add over a 100,000-entry row is itself off by about 1e-5
-    relative, in an order that changes from run to run."""
+    each launched twice over the plan's cached pack table and bitwise
+    equal, and once over a table built from ``indptr``; returns the
+    largest errors.  The plain versions run in float64 on the same
+    values: a float32 index_add over a 100,000-entry row is itself off
+    by about 1e-5 relative, in an order that changes from run to run."""
     import torch
     from torchsparsegradutils_tpu_torch.kernels import _build
     from torchsparsegradutils_tpu_torch.kernels.chunk_lse import (
-        lse_rows, lse_rows_bwd, lse_rows_bwd_plain, lse_rows_plain)
+        lse_rows, lse_rows_bwd, lse_rows_bwd_plain, lse_rows_plain,
+        plan_packs)
     ip = plan.maps(vals.device)["indptr"]
+    pk = plan_packs(plan, vals.device)
     g = torch.randn(plan.n, generator=gen).to(
         vals.device, _build.acc_dtype(vals.dtype))
     err = {}
     for iz in (False, True):
-        out, again = (lse_rows(ip, vals, width, iz) for _ in range(2))
-        if not torch.equal(out, again):
+        out, again = (lse_rows(ip, vals, width, iz, pk) for _ in range(2))
+        if not (torch.equal(out, again)
+                and torch.equal(out, lse_rows(ip, vals, width, iz))):
             raise AssertionError(f"{label} lse_rows [{dt_name}]: two "
                                  "launches differ")
         ref = lse_rows_plain(ip, vals.double(), width, iz)
         e = close_inf(f"{label} lse_rows include_zeros={iz} (repeats "
                       "bitwise)", out, ref, dt_name)
         err["lse_rows"] = max(err.get("lse_rows", 0.0), e)
-        d, d2 = (lse_rows_bwd(ip, vals, out, g) for _ in range(2))
-        if not torch.equal(d, d2):
+        d, d2 = (lse_rows_bwd(ip, vals, out, g, pk) for _ in range(2))
+        if not (torch.equal(d, d2)
+                and torch.equal(d, lse_rows_bwd(ip, vals, out, g))):
             raise AssertionError(f"{label} lse_rows_bwd [{dt_name}]: two "
                                  "launches differ")
         e = close(f"{label} lse_rows_bwd include_zeros={iz} (repeats "
@@ -909,6 +920,29 @@ def lse_fwd_bwd(A, backend):
     cts = [torch.linspace(-1, 1, o.numel(), device=v.device) for o in outs]
     (gv,) = torch.autograd.grad(outs, v, cts)
     return outs, gv
+
+
+def lse_step(A, what):
+    """A step of the LSE ops on A on ``auto``: ``dim1_fwd``, ``dim0_fwd``,
+    ``bidir_fwd`` (no graph) or ``bidir_fwd_bwd`` (the bidir LSE and the
+    gradient of its outputs' weighted sum)."""
+    import torch
+    from torchsparsegradutils_tpu_torch import (sparse_bidir_logsumexp,
+                                                sparse_logsumexp)
+    v = A.values.detach().clone().requires_grad_(what == "bidir_fwd_bwd")
+    M = A.with_data(v)
+
+    def step():
+        if what == "bidir_fwd_bwd":
+            outs = sparse_bidir_logsumexp(M)
+            torch.autograd.grad(outs, v, outs)
+            return
+        with torch.no_grad():
+            if what == "bidir_fwd":
+                sparse_bidir_logsumexp(M)
+            else:
+                sparse_logsumexp(M, 1 if what == "dim1_fwd" else 0)
+    return step
 
 
 def drive_lse(label, A, expect, forbid):
@@ -1343,10 +1377,8 @@ def k9_steps(A, H, R, T, plan1, B, G, TB, gen, dev, steps):
     (stencil, hybrid85, random, tri-random p = 2, the bidir LSE fwd+bwd
     on lse-random and lse-skewed, sharded-chunk and sharded-dia at world
     size 1, the flagship train step)."""
-    import numpy as np
     import torch
-    from torchsparsegradutils_tpu_torch import (SparseCSR,
-                                                sparse_bidir_logsumexp,
+    from torchsparsegradutils_tpu_torch import (sparse_bidir_logsumexp,
                                                 sparse_mm,
                                                 sparse_triangular_solve)
     from torchsparsegradutils_tpu_torch.parallel import (
@@ -1402,11 +1434,7 @@ def k9_steps(A, H, R, T, plan1, B, G, TB, gen, dev, steps):
                                                transpose=True))]
     TR = rand_sparse_tri((N, N), NNZ_TRI_RANDOM, upper=False, layout="csr",
                          generator=gen, device=dev)
-    s_rows, s_cols = skewed_pattern(N)
-    s_indptr = np.concatenate([[0], np.cumsum(np.bincount(s_rows,
-                                                          minlength=N))])
-    S = SparseCSR(s_indptr, s_cols, torch.randn(len(s_cols), generator=gen),
-                  (N, N), device=dev)
+    S = lse_skewed(gen, dev)
     f = sharded_dia_spmm(A)
     enc = make_model((1, 48, 48, 48), radius=1.5)
     state = {"p": init_params(enc, torch.Generator().manual_seed(0), dev)}
@@ -1428,17 +1456,123 @@ def k9_steps(A, H, R, T, plan1, B, G, TB, gen, dev, steps):
     return todo
 
 
+def lse_skewed(gen, dev):
+    """The lse-skewed matrix at cfd2 scale (:func:`skewed_pattern`), its
+    values drawn from ``gen``."""
+    import numpy as np
+    import torch
+    from torchsparsegradutils_tpu_torch import SparseCSR
+    rows, cols = skewed_pattern(N)
+    indptr = np.concatenate([[0], np.cumsum(np.bincount(rows, minlength=N))])
+    return SparseCSR(indptr, cols, torch.randn(len(cols), generator=gen),
+                     (N, N), device=dev)
+
+
+def k10_times(splan, svals, cplan, rvals, gen, dev):
+    """K10's and K11's time per launch (CUDA events, and the profiled
+    device time of ``lse_rows_kernel`` and ``lse_rows_bwd_kernel``) on
+    lse-skewed's rows and the random pattern's rows, K10 with
+    ``include_zeros`` true and false, each beside its bound; where the
+    checkout plans row packs (``chunk_lse.plan_packs``), the launches
+    take the plan's cached table; and :func:`k10_split`."""
+    import torch
+    from torchsparsegradutils_tpu_torch.kernels import chunk_lse
+    packs_of = getattr(chunk_lse, "plan_packs", None)
+    out = {}
+    for label, plan, vals in (("skewed", splan, svals),
+                              ("random", cplan, rvals)):
+        ip = plan.maps(dev)["indptr"]
+        n, nnz, es = plan.n, plan.nnz, vals.element_size()
+        g = torch.randn(n, generator=gen).to(dev)
+        kw = {} if packs_of is None else {"packs": packs_of(plan, dev)}
+        row = {"rows": n, "entries": nnz}
+        for iz in (False, True):
+            o = chunk_lse.lse_rows(ip, vals, n, iz, **kw)
+
+            def fwd():
+                return chunk_lse.lse_rows(ip, vals, n, iz, **kw)
+
+            def bwd():
+                return chunk_lse.lse_rows_bwd(ip, vals, o, g, **kw)
+            row[f"include_zeros_{iz}"] = {
+                "k10_ms": time_ms(fwd), "k10_device_ms": device_ms(
+                    fwd, "lse_rows_kernel"),
+                "k11_ms": time_ms(bwd), "k11_device_ms": device_ms(
+                    bwd, "lse_rows_bwd_kernel")}
+        row["k10_bound_ms"] = bound(nnz * es + (n + 1) * 8 + n * es,
+                                    2 * nnz)[0]
+        row["k11_bound_ms"] = bound(2 * nnz * es + (n + 1) * 8 + 2 * n * es,
+                                    2 * nnz)[0]
+        if packs_of is not None:
+            row["packs"] = kw["packs"].table.shape[0] - 1
+        if label == "skewed":
+            row["split"] = k10_split(plan, vals, g, dev, packs_of)
+        out[label] = row
+    return out
+
+
+def k10_split(plan, vals, g, dev, packs_of):
+    """K10's and K11's profiled device time on lse-skewed's rows of more
+    than 256 entries alone (the hubs) and on the others alone, each as a
+    CSR of its own, to show which rows take the time."""
+    import numpy as np
+    import torch
+    from torchsparsegradutils_tpu_torch.kernels import chunk_lse
+    lens = np.diff(plan.indptr)
+    out = {}
+    for part, keep in (("hubs", lens > 256), ("light", lens <= 256)):
+        indptr = np.concatenate([[0], np.cumsum(lens[keep])])
+        sel = np.concatenate([np.arange(plan.indptr[r], plan.indptr[r + 1])
+                              for r in np.flatnonzero(keep)])
+        v = vals[torch.from_numpy(sel).to(dev)]
+        ip = torch.from_numpy(indptr).to(dev)
+        gp = g[torch.from_numpy(np.flatnonzero(keep)).to(dev)]
+        kw = {} if packs_of is None else {
+            "packs": chunk_lse.pack_table(indptr, device=dev)}
+        o = chunk_lse.lse_rows(ip, v, plan.m, True, **kw)
+        out[part] = {
+            "rows": int(keep.sum()), "entries": len(sel),
+            "k10_device_ms": device_ms(
+                lambda: chunk_lse.lse_rows(ip, v, plan.m, True, **kw),
+                "lse_rows_kernel"),
+            "k11_device_ms": device_ms(
+                lambda: chunk_lse.lse_rows_bwd(ip, v, o, gp, **kw),
+                "lse_rows_bwd_kernel")}
+    return out
+
+
+def k10_steps(A, R, S, B, G):
+    """``--k10``'s steps: those that launch K10 or K11 (lse-skewed
+    ``dim1_fwd``, ``bidir_fwd`` and ``bidir_fwd_bwd``), then, for
+    control, steps that launch neither (the bidir LSE fwd+bwd on
+    lse-random and lse-stencil, ``sparse_mm`` fwd+bwd on the stencil and
+    the random pattern)."""
+    from torchsparsegradutils_tpu_torch import sparse_mm
+
+    def mm(M):
+        return chained_step(lambda v, b: sparse_mm(M.with_data(v), b),
+                            M.values, B, G)
+    return [("lse_skewed_dim1_fwd", lse_step(S, "dim1_fwd")),
+            ("lse_skewed_bidir_fwd", lse_step(S, "bidir_fwd")),
+            ("lse_skewed_bidir_fwd_bwd", lse_step(S, "bidir_fwd_bwd")),
+            ("lse_random_bidir_fwd_bwd", lse_step(R, "bidir_fwd_bwd")),
+            ("lse_stencil_bidir_fwd_bwd", lse_step(A, "bidir_fwd_bwd")),
+            ("stencil_fwd_bwd", mm(A)), ("random_fwd_bwd", mm(R))]
+
+
 def compare(which) -> int:
-    """``--k1`` / ``--k2`` / ``--k6`` / ``--k7`` / ``--k9``: that kernel's
-    times (:func:`k1_times`, :func:`k2_times`, :func:`k7_times`,
-    :func:`k9_times`; for K6 :func:`k6_times` and K13's
-    :func:`k13_times`, whole and per slab of 4) and the times of the
-    steps that launch it, wall and profiled device time, nothing else:
+    """``--k1`` / ``--k2`` / ``--k6`` / ``--k7`` / ``--k9`` / ``--k10``:
+    that kernel's times (:func:`k1_times`, :func:`k2_times`,
+    :func:`k7_times`, :func:`k9_times`, :func:`k10_times`; for K6
+    :func:`k6_times` and K13's :func:`k13_times`, whole and per slab of
+    4) and the times of the steps that launch it, wall and profiled
+    device time, nothing else:
     for K1 and K2 stencil, hybrid85, stencil p=16 and sharded-dia
     fwd+bwd (K2 also tri-stencil p = 2); for K6 and K7 random p=128,
     hybrid85, sharded-chunk at world size 1 and public ``sddmm`` on the
     random pattern (K7 also random p=1, tri-random p=2 and random-fused,
-    whose K12a computes K7's gradA); for K9 :func:`k9_steps`.  Run in
+    whose K12a computes K7's gradA); for K9 :func:`k9_steps`, for K10
+    :func:`k10_steps` (with each step's K10 and K11 launches).  Run in
     turns from two checkouts to compare them on one card.  Prints one
     JSON line."""
     import torch
@@ -1448,6 +1582,8 @@ def compare(which) -> int:
     from torchsparsegradutils_tpu_torch import (sddmm, sparse_mm,
                                                 sparse_triangular_solve)
     from torchsparsegradutils_tpu_torch.kernels import _build, dia, dia_tri
+    from torchsparsegradutils_tpu_torch.kernels.chunk_lse import (
+        lse_rows, lse_rows_bwd)
     from torchsparsegradutils_tpu_torch.kernels.chunk_spmm import (
         build_chunk_plan)
     from torchsparsegradutils_tpu_torch.kernels.dia import (build_dia_plan,
@@ -1464,14 +1600,20 @@ def compare(which) -> int:
     plan = build_dia_plan(A.row_sa(), A.col_sa(), N, N)
     B = torch.randn(N, P, generator=gen).to(dev)
     G = torch.randn(N, P, generator=gen).to(dev)
-    H = hybrid_sparse((N, N), STENCIL_OFFSETS, NNZ_HYBRID, dia_coverage=0.85,
-                      generator=gen, device=dev)
-    if which in ("k6", "k7", "k9"):
+    H = None if which == "k10" else hybrid_sparse(
+        (N, N), STENCIL_OFFSETS, NNZ_HYBRID, dia_coverage=0.85,
+        generator=gen, device=dev)
+    if which in ("k6", "k7", "k9", "k10"):
         R = rand_sparse((N, N), NNZ_RANDOM, layout="csr", generator=gen,
                         device=dev)
         cplan = build_chunk_plan(R.row_sa(), R.col_sa(), N, N)
         plan1 = build_sharded_chunk_plan(R, 1)
-    if which == "k9":
+    if which == "k10":
+        S = lse_skewed(gen, dev)
+        res = {"k10": k10_times(build_chunk_plan(S.row_sa(), S.col_sa(), N,
+                                                 N), S.values, cplan,
+                                R.values, gen, dev)}
+    elif which == "k9":
         T = stencil_sparse((N, N), TRI_OFFSETS, well_conditioned=True,
                            generator=gen, device=dev)
         tplan = build_dia_plan(T.row_sa(), T.col_sa(), N, N)
@@ -1525,6 +1667,8 @@ def compare(which) -> int:
                      ("random_fused", fused(step(R, P)))]
         elif which == "k9":
             todo = k9_steps(A, H, R, T, plan1, B, G, TB, gen, dev, steps)
+        elif which == "k10":
+            todo = k10_steps(A, R, S, B, G)
         elif which != "k6":
             f = sharded_dia_spmm(A)
             todo = [("stencil", step(A, P)), ("hybrid85", step(H, P)),
@@ -1538,13 +1682,22 @@ def compare(which) -> int:
                                                      upper=False),
                 T.values, B[:, :2].contiguous(), G[:, :2].contiguous())))
         for label, fn in todo:
-            name = label if label.endswith("_fwd") else f"{label}_fwd_bwd"
+            name = label if label.endswith(("_fwd", "_bwd")) \
+                else f"{label}_fwd_bwd"
             if which == "k9":
                 before = dia_tri.tri_dia_core.launches
                 fn()
                 torch.cuda.synchronize()
                 steps[f"{name}_k9_launches"] = \
                     dia_tri.tri_dia_core.launches - before
+            if which == "k10":
+                before = (lse_rows.launches, lse_rows_bwd.launches)
+                fn()
+                torch.cuda.synchronize()
+                steps[f"{label}_k10_launches"] = \
+                    lse_rows.launches - before[0]
+                steps[f"{label}_k11_launches"] = \
+                    lse_rows_bwd.launches - before[1]
             steps[f"{name}_ms"] = time_ms(
                 fn, reps=10 if label.startswith(("tri", "flagship")) else 50,
                 warmup=1 if label.startswith("tri_random") else 3)
@@ -1767,12 +1920,11 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
-    from torchsparsegradutils_tpu_torch import (SparseCSR,
-                                                sparse_bidir_logsumexp,
-                                                sparse_logsumexp, sparse_mm)
+    from torchsparsegradutils_tpu_torch import sparse_logsumexp, sparse_mm
     from torchsparsegradutils_tpu_torch.kernels import _build, dia
     from torchsparsegradutils_tpu_torch.kernels.chunk_lse import (
-        lse_rows, lse_rows_bwd, lse_rows_bwd_plain, lse_rows_plain)
+        lse_rows, lse_rows_bwd, lse_rows_bwd_plain, lse_rows_plain,
+        plan_packs)
     from torchsparsegradutils_tpu_torch.kernels.chunk_spmm import (
         build_chunk_plan, chunk_bwd_pass1, chunk_bwd_pass1_plain,
         chunk_bwd_pass2, chunk_bwd_pass2_plain, chunk_sddmm,
@@ -1829,14 +1981,10 @@ def main() -> int:
     tgrid = values_to_grid(tplan, T.values)
     TB = torch.randn(N, P, generator=gen).to(dev)
     t1 = time.perf_counter()
-    s_rows, s_cols = skewed_pattern(N)
-    s_indptr = np.concatenate([[0], np.cumsum(np.bincount(s_rows,
-                                                          minlength=N))])
-    S = SparseCSR(s_indptr, s_cols, torch.randn(len(s_cols), generator=gen),
-                  (N, N), device=dev)
+    S = lse_skewed(gen, dev)
     splan = build_chunk_plan(S.row_sa(), S.col_sa(), N, N)
     print(f"  lse-skewed: {S.nnz} entries, longest row "
-          f"{int(np.diff(s_indptr).max())}, built in "
+          f"{int(np.diff(splan.indptr).max())}, built in "
           f"{time.perf_counter() - t1:.1f} s")
     lplan, lvals = lse_awkward_plan()
     H = hybrid_sparse((N, N), STENCIL_OFFSETS, NNZ_HYBRID, dia_coverage=0.85,
@@ -2143,22 +2291,6 @@ def main() -> int:
         build()
         host[name] = time.perf_counter() - t1
     # the LSE steps, and sparse_mm's fwd+bwd under the two backwards
-    def lse_step(A, what):
-        v = A.values.detach().clone().requires_grad_(what == "bidir_fwd_bwd")
-        M = A.with_data(v)
-
-        def step():
-            if what == "bidir_fwd_bwd":
-                outs = sparse_bidir_logsumexp(M)
-                torch.autograd.grad(outs, v, outs)
-                return
-            with torch.no_grad():
-                if what == "bidir_fwd":
-                    sparse_bidir_logsumexp(M)
-                else:
-                    sparse_logsumexp(M, 1 if what == "dim1_fwd" else 0)
-        return step
-
     for label, M in (("lse_stencil", A), ("lse_random", R),
                      ("lse_skewed", S)):
         for what in ("dim1_fwd", "dim0_fwd", "bidir_fwd", "bidir_fwd_bwd"):
@@ -2295,8 +2427,9 @@ def main() -> int:
     # K10 and K11 on lse-skewed (include_zeros, as sparse_logsumexp's
     # default), K12a and K12b on the random pattern at p = 128
     sm = splan.maps(dev)
+    spk = plan_packs(splan, dev)
     nnz_s = S.nnz
-    out_s = lse_rows(sm["indptr"], S.values, N, True)
+    out_s = lse_rows(sm["indptr"], S.values, N, True, spk)
     g_s = torch.randn(N, generator=gen).to(dev)
     coo_s = torch.sparse_coo_tensor(torch.stack([S.rows_t(), S.cols_t()]),
                                     S.values, (N, N)).coalesce()
@@ -2310,13 +2443,13 @@ def main() -> int:
     spec += [
         ("lse_rows", lse_src, "torchsparsegradutils_tpu/kernels/"
          "chunk_lse.py:70 (K10 _lse_partials)", launches_lse,
-         lambda: lse_rows(sm["indptr"], S.values, N, True),
+         lambda: lse_rows(sm["indptr"], S.values, N, True, spk),
          lambda: lse_rows_plain(sm["indptr"], S.values, N, True),
          lambda: torch.sparse.log_softmax(coo_s, 1),
          bound(nnz_s * es + (n + 1) * 8 + n * es, 2 * nnz_s)),
         ("lse_rows_bwd", lse_src, "torchsparsegradutils_tpu/kernels/"
          "chunk_lse.py:142 (K11 _lse_bwd_pass)", launches_lse,
-         lambda: lse_rows_bwd(sm["indptr"], S.values, out_s, g_s),
+         lambda: lse_rows_bwd(sm["indptr"], S.values, out_s, g_s, spk),
          lambda: lse_rows_bwd_plain(sm["indptr"], S.values, out_s, g_s),
          None, bound(2 * nnz_s * es + (n + 1) * 8 + 2 * n * es,
                      2 * nnz_s)),
@@ -2383,6 +2516,9 @@ def main() -> int:
             row["per_launch"] = k9
         if name == "chunk_bwd_pass1":
             row["device_ms"] = device_ms(kern, "bwd_rows")
+        if name in ("lse_rows", "lse_rows_bwd"):
+            # the event time of a launch this short is the host's pace
+            row["device_ms"] = device_ms(kern, f"{name}_kernel")
         if name == "gather":
             # K3's event time is near the host's launch rate: the profiled
             # kernel time of K3 and of the library call
@@ -2401,7 +2537,7 @@ def main() -> int:
 if __name__ == "__main__":
     t0 = time.perf_counter()
     mode = {"--k1": "k1", "--k2": "k2", "--k6": "k6", "--k7": "k7",
-            "--k9": "k9"}.get(" ".join(sys.argv[1:]))
+            "--k9": "k9", "--k10": "k10"}.get(" ".join(sys.argv[1:]))
     rc = compare(mode) if mode else main()
     print(f"chip_smoke: {time.perf_counter() - t0:.1f} s", file=sys.stderr)
     sys.exit(rc)

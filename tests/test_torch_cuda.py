@@ -20,7 +20,8 @@ from torchsparsegradutils_tpu_torch import (SparseCOO, sddmm,
 from torchsparsegradutils_tpu_torch.kernels import _build, dia
 from torchsparsegradutils_tpu_torch.kernels import chunk_spmm as cs
 from torchsparsegradutils_tpu_torch.kernels.chunk_lse import (
-    lse_rows, lse_rows_bwd, lse_rows_bwd_plain, lse_rows_plain)
+    LsePacks, lse_rows, lse_rows_bwd, lse_rows_bwd_plain, lse_rows_plain,
+    pack_table)
 from torchsparsegradutils_tpu_torch.kernels.chunk_spmm import (
     build_chunk_plan, chunk_bwd_pass1, chunk_bwd_pass1_plain,
     chunk_bwd_pass2, chunk_bwd_pass2_plain, chunk_sddmm, chunk_sddmm_plain,
@@ -37,6 +38,8 @@ from torchsparsegradutils_tpu_torch.kernels.window_gather import (
 from torchsparsegradutils_tpu_torch.types import StaticArray
 from torchsparsegradutils_tpu_torch.utils.random_sparse import (
     hybrid_sparse, rand_sparse, rand_sparse_tri, stencil_sparse)
+from torch_lse_patterns import (EDGE_ALL_NEG_INF, EDGE_PLUS_INF,
+                                lse_pattern, pack_edge_pattern)
 
 pytestmark = pytest.mark.cuda
 
@@ -446,35 +449,11 @@ def close_inf(got, ref, dtype):
     close(got[fin], ref[fin], dtype)
 
 
-def _lse_pattern():
-    """(3000, 200_000): empty rows, a single entry, rows of 1,024 and
-    1,025 entries (either side of the kernels' whole-block threshold),
-    one row of 100,000, the rest uniform; values with +inf, -inf and an
-    all -inf row."""
-    n, m = 3000, 200_000
-    rng = np.random.default_rng(11)
-    keys = np.sort(rng.choice(n * 50, 20_000, replace=False))
-    rows, cols = keys // 50, keys % 50
-    keep = (rows % 9 != 0) & ~np.isin(rows, [5, 6, 7, 8])
-    extra = [(5, 100_000), (6, 1024), (7, 1025), (8, 1)]
-    rows = np.concatenate([rows[keep]] + [np.full(k, r) for r, k in extra])
-    cols = np.concatenate([cols[keep]] + [np.sort(rng.choice(m, k, False))
-                                          for _, k in extra])
-    order = np.lexsort((cols, rows))
-    rows, cols = rows[order], cols[order]
-    vals = rng.standard_normal(len(rows)) * 3
-    vals[rows == 10] = -np.inf                      # an all -inf row
-    vals[np.flatnonzero(rows == 11)[:1]] = np.inf
-    vals[np.flatnonzero(rows == 12)[:1]] = -np.inf
-    vals[np.flatnonzero(rows == 5)[::997]] = -np.inf
-    return build_chunk_plan(StaticArray(rows), StaticArray(cols), n, m), vals
-
-
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("include_zeros", [False, True])
 def test_lse_kernels_match_plain_and_repeat_bitwise(dev, dtype,
                                                     include_zeros):
-    plan, vals = _lse_pattern()
+    plan, vals = lse_pattern()
     ip = plan.maps(dev)["indptr"]
     v = torch.from_numpy(vals).to(dev, dtype)
     acc = _build.acc_dtype(dtype)
@@ -496,6 +475,29 @@ def test_lse_kernels_match_plain_and_repeat_bitwise(dev, dtype,
     assert (out[0] == float("-inf")) != include_zeros   # an empty row
     close(d, lse_rows_bwd_plain(ip, v.double(), out.double(), g.double()),
           dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_lse_kernels_at_pack_edges(dev, dtype):
+    # the plan's own lane groups: the pattern's packs pick G = 4, 8, 16
+    # and 32 (tests/test_torch_lse.py holds the plan to that)
+    n, m, indptr, vals = pack_edge_pattern()
+    ip = torch.from_numpy(indptr).to(dev)
+    v = torch.from_numpy(vals).to(dev, dtype)
+    g = torch.randn(n, generator=torch.Generator().manual_seed(5)).to(
+        dev, _build.acc_dtype(dtype))
+    pk = pack_table(indptr, dev)
+    for iz in (False, True):
+        out = lse_rows(ip, v, m, iz, pk)
+        d = lse_rows_bwd(ip, v, out, g, pk)
+        torch.cuda.synchronize()
+        assert torch.equal(out, lse_rows(ip, v, m, iz, pk))
+        assert torch.equal(d, lse_rows_bwd(ip, v, out, g, pk))
+        close_inf(out, lse_rows_plain(ip, v.double(), m, iz), dtype)
+        assert (out[list(EDGE_PLUS_INF)] == float("inf")).all()
+        assert ((out[list(EDGE_ALL_NEG_INF)] == float("-inf")) != iz).all()
+        close(d, lse_rows_bwd_plain(ip, v.double(), out.double(),
+                                    g.double()), dtype)
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -607,6 +609,18 @@ def test_lse_and_fused_wrappers_refuse_what_the_kernels_do_not_take(dev):
                      torch.ones(2, device=dev))
     with pytest.raises(ValueError, match="float32, bfloat16 or float64"):
         lse_rows(ip, v.half(), 3, True)
+    bad = LsePacks(torch.zeros(2, 3, dtype=torch.int64), 2, 2)   # on the CPU
+    with pytest.raises(ValueError, match="packs must be"):
+        lse_rows(ip, v, 3, True, bad)
+    with pytest.raises(ValueError, match="packs must be"):
+        lse_rows_bwd(ip, v, v, v, bad._replace(table=bad.table[:1].to(dev)))
+    # a table cut for another pattern: the kernels would index out and d
+    # past their ends
+    other = pack_table(np.array([0, 1, 2, 3]), dev)
+    with pytest.raises(ValueError, match="cut for 3 rows and 3 entries"):
+        lse_rows(ip, v, 3, True, other)
+    with pytest.raises(ValueError, match="cut for 2 rows and 3 entries"):
+        lse_rows_bwd(ip, v, v, v, pack_table(np.array([0, 1, 3]), dev))
     x = torch.ones(2, 4, device=dev)
     with pytest.raises(ValueError, match="B's dtype or bfloat16"):
         chunk_bwd_pass1(ip, ip[:2], v, x, x, torch.float64)

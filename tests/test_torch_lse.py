@@ -44,6 +44,7 @@ from torchsparsegradutils_tpu_torch.ops import logsumexp as pops
 from torchsparsegradutils_tpu_torch.types import StaticArray
 from torchsparsegradutils_tpu_torch.utils.random_sparse import (
     stencil_sparse)
+from torch_lse_patterns import lse_pattern, pack_edge_pattern
 
 F32 = dict(rtol=1e-5, atol=1e-6)
 GRAD32 = dict(rtol=1e-4, atol=1e-6)
@@ -545,3 +546,123 @@ def test_wrappers_refuse_non_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA device"):
         pcl.lse_rows_bwd(idx, v, torch.empty(2, device="meta"),
                          torch.empty(2, device="meta"))
+
+
+# --------------------------------------------------------------------------
+# (d) the row-pack plan that K10 and K11 walk on the card
+# --------------------------------------------------------------------------
+
+def _hub_indptr():
+    """3,000 rows: a hub of 1,250 entries every 100th row, 20,000 uniform
+    entries over the rest (the lse-skewed shape, cut down)."""
+    rng = np.random.default_rng(8)
+    counts = np.bincount(rng.integers(0, 3000, 20_000), minlength=3000)
+    counts[::100] = 1250
+    return np.concatenate([[0], np.cumsum(counts)])
+
+
+def _pack_cases():
+    return {"skewed": _hub_indptr(),
+            "awkward": lse_pattern()[0].indptr,
+            "edges": pack_edge_pattern()[2],
+            "n_much_larger": np.array([0] * 40_000 + [1, 3] + [3] * 9_000),
+            "no_entries": np.zeros(5_001, np.int64)}
+
+
+@pytest.mark.parametrize("T", [1024, pcl.PACK_ENTRIES, 4096])
+@pytest.mark.parametrize("kind", ["skewed", "awkward", "edges",
+                                  "n_much_larger", "no_entries"])
+def test_lse_packs_cover_every_row_once_within_the_pack_size(kind, T):
+    indptr = _pack_cases()[kind]
+    n = len(indptr) - 1
+    starts = pcl.lse_packs(indptr, T)
+    # every row exactly once, in order: strictly increasing from 0 to n
+    assert starts.dtype == np.int64 and starts[0] == 0 and starts[-1] == n
+    assert (np.diff(starts) > 0).all()
+    rows = np.diff(starts)
+    ents = indptr[starts[1:]] - indptr[starts[:-1]]
+    lens = np.diff(indptr)
+    several = rows > 1
+    # a pack of several rows fits the staging; a longer row is alone
+    assert (ents[several] <= T).all() and (rows[several] <= T // 2).all()
+    alone = np.zeros(n, bool)
+    alone[starts[:-1][~several]] = True
+    assert alone[lens > pcl.LONG_ROW].all()
+    # greedy: the next row would not have fitted a pack of several
+    nxt = starts[1:-1][several[:-1]]
+    over = (indptr[np.minimum(nxt + 1, n)] - indptr[starts[:-2][several[:-1]]]
+            > T) | (nxt - starts[:-2][several[:-1]] >= T // 2) \
+        | (lens[nxt] > pcl.LONG_ROW)
+    assert over.all()
+    G = pcl.pack_lanes(indptr, starts)
+    assert G.shape == rows.shape
+    assert np.isin(G, [4, 8, 16, 32]).all() and (G[~several] == 32).all()
+
+
+def test_pack_lanes_follow_the_mean_row_length():
+    # packs of 1, 4, 13, 25, 100 and 200 entries a row
+    for per_row, want in ((1, 4), (4, 4), (13, 4), (25, 8), (100, 32),
+                          (200, 32)):
+        indptr = np.arange(0, per_row * 10 + 1, per_row)
+        assert pcl.pack_lanes(indptr, [0, 10]).tolist() == [want]
+
+
+def test_pack_edge_pattern_reaches_every_lane_group():
+    # the card's pack edge test runs every path of the pack loop through
+    # the plan's own choices: lane groups of 4, 8, 16 and 32 in packs of
+    # several rows, a warp's row (longer than 8 G) in packs of G < 32,
+    # packs of one row of one chunk and of several, and packs of empty
+    # rows only
+    _, _, indptr, _ = pack_edge_pattern()
+    starts = pcl.lse_packs(indptr)
+    G = pcl.pack_lanes(indptr, starts)
+    rows = np.diff(starts)
+    ents = indptr[starts[1:]] - indptr[starts[:-1]]
+    several = rows > 1
+    assert set(G[several].tolist()) == {4, 8, 16, 32}
+    lens = np.diff(indptr)
+    warp_G = {int(G[k]) for k in np.flatnonzero(several & (G < 32))
+              if (lens[starts[k]:starts[k + 1]] > 8 * G[k]).any()}
+    assert {4, 8, 16} <= warp_G
+    alone = ents[~several]
+    assert (alone <= pcl.PACK_ENTRIES).any()
+    assert (alone > 2 * pcl.PACK_ENTRIES).any()
+    assert ((ents == 0) & several).sum() >= 2
+
+
+def test_pack_table_and_its_cache():
+    indptr = _hub_indptr()
+    pk = pcl.pack_table(indptr)
+    starts = pcl.lse_packs(indptr)
+    t = pk.table.numpy()
+    assert (pk.n, pk.nnz) == (3000, indptr[-1])
+    assert t.shape == (len(starts), 3)
+    np.testing.assert_array_equal(t[:, 0], starts)
+    np.testing.assert_array_equal(t[:, 1], indptr[starts])
+    np.testing.assert_array_equal(
+        1 << t[:-1, 2], pcl.pack_lanes(indptr, starts))
+    assert t[-1].tolist() == [3000, indptr[-1], 0]
+    rows = np.repeat(np.arange(3000), np.diff(indptr))
+    plan = build_chunk_plan(StaticArray(rows), StaticArray(rows % 50), 3000,
+                            50)
+    a = pcl.plan_packs(plan, "cpu")
+    assert pcl.plan_packs(plan, "cpu") is a
+    assert torch.equal(a.table, pk.table) and (a.n, a.nnz) == (pk.n, pk.nnz)
+
+
+def test_wrappers_refuse_a_pack_table_of_another_pattern():
+    # checked on the host before a launch: the kernels index out and d
+    # by the table alone
+    ip = torch.tensor([0, 1, 3])
+    v = torch.ones(3)
+    own = pcl.pack_table(ip.numpy())
+    built = pcl._packs_for("lse_rows", ip, v, None)
+    assert torch.equal(built.table, own.table) and built[1:] == own[1:]
+    assert pcl._packs_for("lse_rows", ip, v, own) is own
+    for other in ([0, 1, 2, 3], [0, 1, 2], [0, 3]):
+        with pytest.raises(ValueError, match="packs were cut for"):
+            pcl._packs_for("lse_rows", ip, v, pcl.pack_table(np.array(other)))
+    with pytest.raises(ValueError, match="packs must be"):
+        pcl._packs_for("lse_rows", ip, v,
+                       pcl.pack_table(ip.numpy())._replace(
+                           table=torch.zeros(2, 3, dtype=torch.int32)))
