@@ -27,7 +27,11 @@ last line:
    equal, after printing its window tables (``k2_windows``); the chunk
    kernels on a uniform random pattern of
    cfd2 size (3,087,898 entries; SpMM and SDDMM at p = 128, SpMV at
-   p = 1, the SpMM over the transpose plan too; the SpMM, K6, also at
+   p = 1, the SpMM and the SpMV over the transpose plan too; the SpMV,
+   K8, also on lse-skewed's rows and its hubs alone, on the hybrid85
+   residual's plan and on the small pattern below, over each plan's
+   cached row packs and over a table built from indptr, bitwise equal,
+   against its plain version in float64; the SpMM, K6, also at
    p = 64, 32, 16 and 130, with B and X unaligned, and on the hybrid85
    residual's plan; the SDDMM, K7, also at p = 64, 32, 16, 3 and 130,
    with X, Y and both unaligned, and on the residual's plan), each run
@@ -40,8 +44,9 @@ last line:
    gradients against the generic ``backend="xla"`` path on the card and
    a small case against a dense product, and checks that each kernel of
    each path launched during its run (counters set to 0 just before,
-   read just after; K1's, K2's, K6's, K7's and K13's plain versions must
-   not run on a path that launches their kernel);
+   read just after; K1's, K2's, K6's, K7's, K8's and K13's plain
+   versions must not run on a path that launches their kernel, and K8
+   must launch twice in the random p = 1 step);
    ``sparse_triangular_solve`` forward and backward on two patterns:
    *tri-stencil*, the stencil's lower triangle (13 offsets, diagonally
    dominant) at p = 128 and p = 2, its upper mirror and its transposed
@@ -94,13 +99,16 @@ last line:
    probe, K12a's device time and the slab probe), K9 at p = 128 and 2
    and for the backward's transposed solve (``k9_times``: event and
    profiled device time, the block inverses alone, bound, plain version,
-   ``torch.triangular_solve``), and
+   ``torch.triangular_solve``), K8 for A x and Aᵀ g on the random
+   pattern, on lse-skewed's rows (whole, hubs, light rows) and on the
+   residual (``k8_times``, beside the profiled device time of
+   ``torch.mv`` and ``torch.sparse.mm``), and
    times each kernel, its plain version and one PyTorch library call that
    computes the same function, with CUDA events, and prints them as a
    ``{"kernels": [...]}`` line (thirteen rows, K13's from phase 3d, K1's,
-   K2's, K6's, K7's and K9's with ``per_launch``, K3's with its and
-   ``index_select``'s profiled device time, K12a's and K9's block
-   inverses' with their own);
+   K2's, K6's, K7's, K8's and K9's with ``per_launch``, K3's and K8's
+   with their and the library call's profiled device time, K12a's and
+   K9's block inverses' with their own);
 5. prints ``{"ok": true, "device": {...}}`` as the last line.
 
 Without a CUDA device it exits 1 and prints no result.
@@ -115,7 +123,11 @@ and the steps that launch K6 or K13 (random p=128, hybrid85,
 sharded-chunk at world size 1, public ``sddmm`` on the random pattern)
 as one ``k6_compare`` line; ``--k7`` prints K7's ``k7_times`` and the
 same steps with random p=1, tri-random p=2 and random-fused (whose K12a
-computes K7's gradA) as one ``k7_compare`` line; ``--k9`` prints K9's
+computes K7's gradA) as one ``k7_compare`` line; ``--k8`` prints K8's
+``k8_times`` (with the gather probe and K8 at each fixed lane group)
+and the random p = 1 fwd+bwd step that launches it, with, for control,
+stencil and random ``sparse_mm`` fwd+bwd at p = 128, which do not, as
+one ``k8_compare`` line; ``--k9`` prints K9's
 ``k9_times`` and the steps that launch it (tri-stencil p = 128 and 2,
 fwd and fwd+bwd, the upper mirror and the transposed solve, and the
 fwd+bwd peak extra memory) with, for control, steps that do not
@@ -133,7 +145,7 @@ there, each measures that commit's kernel the same way, so two commits
 compare on one card in turns.  ``--k9`` and ``--k10`` also count their
 kernels' launches in one call of each step (``<step>_k9_launches``,
 ``<step>_k10_launches``, ``<step>_k11_launches``), so the control steps
-show that they launch none.
+show that they launch none; so does ``--k8`` (``<step>_k8_launches``).
 """
 
 import contextlib
@@ -165,10 +177,11 @@ FUSED = ("chunk_bwd_pass1", "chunk_bwd_pass2")
 GRAD_TOL = (1e-4, 1e-6)  # (rtol, atol): LSE gradients, the JAX tests' own
 FAST_REL = 1e-2  # |gradB - split| / |split| with V stored in bfloat16
 ROUTES = []             # triangular-solve routes taken, in order
-PLAIN = {"dia_spmm_plain": 0,    # K1's, K2's, K6's, K7's, K9's and K13's
-         "dia_sddmm_plain": 0,   # plain versions called by their wrappers
-         "chunk_spmm_plain": 0, "chunk_spmm_slab_plain": 0,
-         "chunk_sddmm_plain": 0, "tri_dia_plain": 0}
+PLAIN = {"dia_spmm_plain": 0,    # K1's, K2's, K6's, K7's, K8's, K9's and
+         "dia_sddmm_plain": 0,   # K13's plain versions called by their
+         "chunk_spmm_plain": 0,  # wrappers
+         "chunk_spmm_slab_plain": 0, "chunk_sddmm_plain": 0,
+         "chunk_spmv_plain": 0, "tri_dia_plain": 0}
 K1_PS = (128, 16, 1)    # K1's widths on the main path: stencil, p=16, matvec
 K2_PS = (128, 16, 2, 1)  # K2's: stencil, p=16, tri-stencil p=2, matvec
 K6_PS = (128, 64, 32, 16, 3)  # K6's widths timed on the random pattern
@@ -317,8 +330,8 @@ def track_routes():
 
 
 def count_plain():
-    """Count calls of K1's, K2's, K6's, K7's, K9's (the solve's and the
-    block inverses') and K13's plain versions made through their kernels
+    """Count calls of K1's, K2's, K6's, K7's, K8's, K9's (the solve's and
+    the block inverses') and K13's plain versions made through their kernels
     modules (their wrappers' CPU paths) in ``PLAIN``: a step on the card
     must make none."""
     from torchsparsegradutils_tpu_torch.kernels import chunk_spmm, dia, dia_tri
@@ -331,7 +344,9 @@ def count_plain():
                            (chunk_spmm, "chunk_spmm_slab_plain",
                             "chunk_spmm_slab_plain"),
                            (chunk_spmm, "chunk_sddmm_plain",
-                            "chunk_sddmm_plain")):
+                            "chunk_sddmm_plain"),
+                           (chunk_spmm, "chunk_spmv_plain",
+                            "chunk_spmv_plain")):
         plain = getattr(mod, name)
 
         def counted(*a, _plain=plain, _key=key, **k):
@@ -366,6 +381,8 @@ def read_counters(label, expect, forbid=()):
         forbid += ("chunk_spmm_plain", "chunk_spmm_slab_plain")
     if "chunk_sddmm" in expect:
         forbid += ("chunk_sddmm_plain",)
+    if "chunk_spmv" in expect:
+        forbid += ("chunk_spmv_plain",)
     wrong = [k for k in forbid if launches[k] != 0]
     if wrong:
         raise AssertionError(f"{label}: kernels {wrong} launched off their "
@@ -615,24 +632,21 @@ def awkward_pattern():
 
 
 def check_chunk_kernels(label, plan, vals, B, X, dt_name):
-    """K6 (A@B and Aᵀ X), K7 and K8 against their plain versions, each
-    launched twice and bitwise equal; returns the largest errors."""
+    """K6 (A@B and Aᵀ X) and K7 against their plain versions, each
+    launched twice and bitwise equal; returns the largest errors (K8:
+    :func:`check_k8`)."""
     import torch
     from torchsparsegradutils_tpu_torch.kernels.chunk_spmm import (
-        chunk_sddmm, chunk_sddmm_plain, chunk_spmm, chunk_spmm_plain,
-        chunk_spmv, chunk_spmv_plain)
+        chunk_sddmm, chunk_sddmm_plain, chunk_spmm, chunk_spmm_plain)
     d, dt = plan.maps(B.device), plan.T.maps(B.device)
     vals_t = plan.to_T(vals)
-    x = B[:, 0].contiguous()
     checks = [
         ("chunk_spmm", "A@B", chunk_spmm, chunk_spmm_plain,
          (d["indptr"], d["cols"], vals, B)),
         ("chunk_spmm", "A^T X", chunk_spmm, chunk_spmm_plain,
          (dt["indptr"], dt["cols"], vals_t, X)),
         ("chunk_sddmm", "X, B", chunk_sddmm, chunk_sddmm_plain,
-         (d["indptr"], d["cols"], X, B)),
-        ("chunk_spmv", "A@x", chunk_spmv, chunk_spmv_plain,
-         (d["indptr"], d["cols"], vals, x))]
+         (d["indptr"], d["cols"], X, B))]
     err = {}
     for name, what, kern, plain, args in checks:
         got, again = kern(*args), kern(*args)
@@ -707,6 +721,65 @@ def check_k7_cases(plan, rplan, Y, X, dt_name, gen):
                                  "launches differ")
         err = max(err, close(f"chunk_sddmm {what} (repeats bitwise)", got,
                              chunk_sddmm_plain(*args), dt_name))
+    return err
+
+
+def sub_rows(plan, keep, vals, dev):
+    """The rows ``keep`` (a mask over a chunk plan's rows) as a CSR of
+    their own: (indptr, cols, their values) on ``dev`` and the host
+    indptr."""
+    import numpy as np
+    import torch
+    lens = np.diff(plan.indptr)
+    indptr = np.concatenate([[0], np.cumsum(lens[keep])])
+    sel = torch.from_numpy(np.flatnonzero(np.repeat(keep, lens))).to(dev)
+    return (torch.from_numpy(indptr).to(dev), plan.maps(dev)["cols"][sel],
+            vals[sel], indptr)
+
+
+def k8_table(indptr, dev):
+    """K8's pack table of a host ``indptr`` (cut at ``SPMV_PACK``), or
+    None in a checkout whose K8 takes none."""
+    from torchsparsegradutils_tpu_torch.kernels import chunk_lse, chunk_spmm
+    T = getattr(chunk_spmm, "SPMV_PACK", None)
+    return None if T is None else chunk_lse.pack_table(indptr, dev, T)
+
+
+def k8_calls(plan, vals, x, g):
+    """K8's two calls on a chunk plan: ``A x`` over the plan and ``Aᵀ g``
+    over its transpose plan (the values reordered by K3), each as
+    ``(indptr, cols, values, x)`` and the plan's cached pack table (None
+    in a checkout whose K8 takes none)."""
+    from torchsparsegradutils_tpu_torch.kernels import chunk_lse, chunk_spmm
+    T = getattr(chunk_spmm, "SPMV_PACK", None)
+    dev = x.device
+    d, dt = plan.maps(dev), plan.T.maps(dev)
+    return {"A@x": ((d["indptr"], d["cols"], vals, x),
+                    T and chunk_lse.plan_packs(plan, dev, T)),
+            "A^T g": ((dt["indptr"], dt["cols"], plan.to_T(vals), g),
+                      T and chunk_lse.plan_packs(plan.T, dev, T))}
+
+
+def check_k8(label, calls, dt_name):
+    """K8 against its plain version on each of ``calls`` (as
+    :func:`k8_calls` gives them), launched twice over the call's pack
+    table and once over a table built from ``indptr``, all three bitwise
+    equal; returns the largest error.  The plain version runs in float64
+    on the same values, as a float32 index_add sums in an order that
+    changes from run to run."""
+    import torch
+    from torchsparsegradutils_tpu_torch.kernels.chunk_spmm import (
+        chunk_spmv, chunk_spmv_plain)
+    err = 0.0
+    for what, (args, pk) in calls.items():
+        got, again, built = (chunk_spmv(*args, p) for p in (pk, pk, None))
+        if not (torch.equal(got, again) and torch.equal(got, built)):
+            raise AssertionError(f"{label} chunk_spmv {what} [{dt_name}]: "
+                                 "two launches differ")
+        ip, cols, v, x = args
+        err = max(err, close(
+            f"{label} chunk_spmv {what} (repeats bitwise)", got,
+            chunk_spmv_plain(ip, cols, v.double(), x.double()), dt_name))
     return err
 
 
@@ -1272,6 +1345,91 @@ def k7_times(R, cplan, H, B, G, dev):
     return out
 
 
+def k8_times(R, cplan, S, H, dev, probes=True):
+    """K8's time per launch (CUDA events, and the profiled device time of
+    ``chunk_spmv_kernel``) for ``A x`` on the random pattern and ``Aᵀ g``
+    over its transpose plan, on lse-skewed's rows (whole, the hubs alone
+    and the light rows alone) and on the hybrid85 residual, f32, each
+    beside its bound and the profiled device time of ``torch.mv`` and of
+    ``torch.sparse.mm`` at p = 1 on the same CSR (``library_ms`` the
+    latter's event time); where the checkout passes row packs to K8,
+    over the plan's cached table.  With ``probes``: as a probe of the
+    gather, the random ``A x`` with every column folded into x's first
+    4,096 entries (16 KB, which the L1 holds); and, where K8 takes a
+    table, the random ``A x`` and ``Aᵀ g`` and the light rows with the
+    table's lane-group column forced to each G of 4, 8, 16 and 32 for
+    every pack of several rows (``fixed_G``)."""
+    import numpy as np
+    import torch
+    from torchsparsegradutils_tpu_torch.kernels import dia
+    from torchsparsegradutils_tpu_torch.kernels.chunk_spmm import (
+        build_chunk_plan, chunk_spmv)
+    gen = torch.Generator().manual_seed(8)
+    x = torch.randn(N, generator=gen).to(dev)
+    g = torch.randn(N, generator=gen).to(dev)
+    splan = build_chunk_plan(S.row_sa(), S.col_sa(), N, N)
+    hplan = dia.build_dia_plan(H.row_sa(), H.col_sa(), N, N)
+    rp = dia._resid_chunk_plan(hplan)
+    hv = H.values[torch.from_numpy(hplan.resid_sel).to(dev)]
+    calls = k8_calls(cplan, R.values, x, g)
+    # label: (indptr, cols, values, x), host indptr
+    cases = {"random_Ax": (calls["A@x"][0], cplan.indptr),
+             "random_ATg": (calls["A^T g"][0], cplan.T.indptr)}
+    for label, plan, vals in (("skewed", splan, S.values), ("resid", rp, hv)):
+        d = plan.maps(dev)
+        cases[label] = ((d["indptr"], d["cols"], vals, x), plan.indptr)
+    lens = np.diff(splan.indptr)
+    for part, keep in (("hubs", lens > 256), ("light", lens <= 256)):
+        ip, cols, v, indptr = sub_rows(splan, keep, S.values, dev)
+        cases[f"skewed_{part}"] = ((ip, cols, v, x), indptr)
+    if probes:
+        ip, cols, v, _ = cases["random_Ax"][0]
+        cases["random_Ax_x_in_l1"] = ((ip, cols % 4096, v, x),
+                                      cplan.indptr)
+    out = {}
+    for label, (args, indptr) in cases.items():
+        ip, cols, v, xx = args
+        n, nnz = ip.shape[0] - 1, cols.shape[0]
+        pk = k8_table(indptr, dev)
+        kw = {} if pk is None else {"packs": pk}
+
+        def run(kw=kw, args=args):
+            return chunk_spmv(*args, **kw)
+        ucols = 4096 if label.endswith("l1") else len(np.unique(
+            cols.cpu().numpy()))                 # x entries the call reads
+        b_ms, b_by = bound(nnz * (4 + 8) + (n + 1) * 8 + (ucols + n) * 4,
+                           2 * nnz)
+        row = {"rows": n, "entries": nnz, "ms": time_ms(run),
+               "device_ms": device_ms(run, "chunk_spmv_kernel"),
+               "bound_ms": b_ms, "bound_by": b_by}
+        if pk is not None:
+            row["packs"] = pk.table.shape[0] - 1
+        if not label.endswith("l1"):
+            csr = torch.sparse_csr_tensor(ip, cols, v, (n, xx.shape[0]))
+            for lib, fn in (("mv", lambda: torch.mv(csr, xx)),
+                            ("spmm", lambda: torch.sparse.mm(
+                                csr, xx[:, None]))):
+                try:
+                    row[f"library_{lib}_device_ms"] = device_ms(fn, "")
+                    if lib == "spmm":
+                        row["library_ms"] = time_ms(fn)
+                except (RuntimeError, NotImplementedError) as exc:
+                    row[f"library_{lib}_error"] = \
+                        str(exc).splitlines()[0][:200]
+        if probes and pk is not None and label in (
+                "random_Ax", "random_ATg", "skewed_light"):
+            several = (pk.table[1:, 0] - pk.table[:-1, 0]) > 1
+            row["fixed_G"] = {}
+            for G in (4, 8, 16, 32):
+                tg = pk.table.clone()
+                tg[:-1, 2][several] = int(np.log2(G))
+                row["fixed_G"][G] = device_ms(
+                    lambda tg=tg: chunk_spmv(*args, pk._replace(table=tg)),
+                    "chunk_spmv_kernel")
+        out[label] = row
+    return out
+
+
 def k13_times(R, plans, B, dev):
     """K13's time per slab of each sharded chunk plan of ``plans`` (CUDA
     events, and the kernel's profiled device time) beside its bound, its
@@ -1521,17 +1679,13 @@ def k10_split(plan, vals, g, dev, packs_of):
     lens = np.diff(plan.indptr)
     out = {}
     for part, keep in (("hubs", lens > 256), ("light", lens <= 256)):
-        indptr = np.concatenate([[0], np.cumsum(lens[keep])])
-        sel = np.concatenate([np.arange(plan.indptr[r], plan.indptr[r + 1])
-                              for r in np.flatnonzero(keep)])
-        v = vals[torch.from_numpy(sel).to(dev)]
-        ip = torch.from_numpy(indptr).to(dev)
+        ip, _, v, indptr = sub_rows(plan, keep, vals, dev)
         gp = g[torch.from_numpy(np.flatnonzero(keep)).to(dev)]
         kw = {} if packs_of is None else {
             "packs": chunk_lse.pack_table(indptr, device=dev)}
         o = chunk_lse.lse_rows(ip, v, plan.m, True, **kw)
         out[part] = {
-            "rows": int(keep.sum()), "entries": len(sel),
+            "rows": int(keep.sum()), "entries": v.shape[0],
             "k10_device_ms": device_ms(
                 lambda: chunk_lse.lse_rows(ip, v, plan.m, True, **kw),
                 "lse_rows_kernel"),
@@ -1560,10 +1714,26 @@ def k10_steps(A, R, S, B, G):
             ("stencil_fwd_bwd", mm(A)), ("random_fwd_bwd", mm(R))]
 
 
+def k8_steps(A, R, B, G):
+    """``--k8``'s steps: the one that launches K8 (random ``sparse_mm``
+    fwd+bwd at p = 1: ``A x``, then ``Aᵀ g``), then, for control, two
+    that do not (``sparse_mm`` fwd+bwd at p = 128 on the stencil and the
+    random pattern)."""
+    from torchsparsegradutils_tpu_torch import sparse_mm
+
+    def mm(M, p):
+        return chained_step(lambda v, b: sparse_mm(M.with_data(v), b),
+                            M.values, B[:, :p].contiguous(),
+                            G[:, :p].contiguous())
+    return [("random_p1", mm(R, 1)), ("stencil", mm(A, P)),
+            ("random", mm(R, P))]
+
+
 def compare(which) -> int:
-    """``--k1`` / ``--k2`` / ``--k6`` / ``--k7`` / ``--k9`` / ``--k10``:
-    that kernel's times (:func:`k1_times`, :func:`k2_times`,
-    :func:`k7_times`, :func:`k9_times`, :func:`k10_times`; for K6
+    """``--k1`` / ``--k2`` / ``--k6`` / ``--k7`` / ``--k8`` / ``--k9`` /
+    ``--k10``: that kernel's times (:func:`k1_times`, :func:`k2_times`,
+    :func:`k7_times`, :func:`k8_times`, :func:`k9_times`,
+    :func:`k10_times`; for K6
     :func:`k6_times` and K13's :func:`k13_times`, whole and per slab of
     4) and the times of the steps that launch it, wall and profiled
     device time, nothing else:
@@ -1571,7 +1741,8 @@ def compare(which) -> int:
     fwd+bwd (K2 also tri-stencil p = 2); for K6 and K7 random p=128,
     hybrid85, sharded-chunk at world size 1 and public ``sddmm`` on the
     random pattern (K7 also random p=1, tri-random p=2 and random-fused,
-    whose K12a computes K7's gradA); for K9 :func:`k9_steps`, for K10
+    whose K12a computes K7's gradA); for K8 :func:`k8_steps` (with each
+    step's K8 launches), for K9 :func:`k9_steps`, for K10
     :func:`k10_steps` (with each step's K10 and K11 launches).  Run in
     turns from two checkouts to compare them on one card.  Prints one
     JSON line."""
@@ -1585,7 +1756,7 @@ def compare(which) -> int:
     from torchsparsegradutils_tpu_torch.kernels.chunk_lse import (
         lse_rows, lse_rows_bwd)
     from torchsparsegradutils_tpu_torch.kernels.chunk_spmm import (
-        build_chunk_plan)
+        build_chunk_plan, chunk_spmv)
     from torchsparsegradutils_tpu_torch.kernels.dia import (build_dia_plan,
                                                             values_to_grid)
     from torchsparsegradutils_tpu_torch.parallel import (
@@ -1603,12 +1774,14 @@ def compare(which) -> int:
     H = None if which == "k10" else hybrid_sparse(
         (N, N), STENCIL_OFFSETS, NNZ_HYBRID, dia_coverage=0.85,
         generator=gen, device=dev)
-    if which in ("k6", "k7", "k9", "k10"):
+    if which in ("k6", "k7", "k8", "k9", "k10"):
         R = rand_sparse((N, N), NNZ_RANDOM, layout="csr", generator=gen,
                         device=dev)
         cplan = build_chunk_plan(R.row_sa(), R.col_sa(), N, N)
         plan1 = build_sharded_chunk_plan(R, 1)
-    if which == "k10":
+    if which == "k8":
+        res = {"k8": k8_times(R, cplan, lse_skewed(gen, dev), H, dev)}
+    elif which == "k10":
         S = lse_skewed(gen, dev)
         res = {"k10": k10_times(build_chunk_plan(S.row_sa(), S.col_sa(), N,
                                                  N), S.values, cplan,
@@ -1669,6 +1842,8 @@ def compare(which) -> int:
             todo = k9_steps(A, H, R, T, plan1, B, G, TB, gen, dev, steps)
         elif which == "k10":
             todo = k10_steps(A, R, S, B, G)
+        elif which == "k8":
+            todo = k8_steps(A, R, B, G)
         elif which != "k6":
             f = sharded_dia_spmm(A)
             todo = [("stencil", step(A, P)), ("hybrid85", step(H, P)),
@@ -1690,6 +1865,11 @@ def compare(which) -> int:
                 torch.cuda.synchronize()
                 steps[f"{name}_k9_launches"] = \
                     dia_tri.tri_dia_core.launches - before
+            if which == "k8":
+                before = chunk_spmv.launches
+                fn()
+                torch.cuda.synchronize()
+                steps[f"{name}_k8_launches"] = chunk_spmv.launches - before
             if which == "k10":
                 before = (lse_rows.launches, lse_rows_bwd.launches)
                 fn()
@@ -1929,7 +2109,7 @@ def main() -> int:
         build_chunk_plan, chunk_bwd_pass1, chunk_bwd_pass1_plain,
         chunk_bwd_pass2, chunk_bwd_pass2_plain, chunk_sddmm,
         chunk_sddmm_plain, chunk_spmm, chunk_spmm_plain, chunk_spmv,
-        chunk_spmv_plain)
+        chunk_spmv_plain, SPMV_PACK)
     from torchsparsegradutils_tpu_torch.kernels.dia import (
         build_dia_plan, sddmm_core, sddmm_core_plain, spmm_core,
         spmm_core_plain, values_to_grid)
@@ -2007,6 +2187,19 @@ def main() -> int:
             print(f"  gather {what} [{name}]: exact")
         ec = check_chunk_kernels("random cfd2", cplan, R.values.to(dt), b, gg,
                                  name)
+        # K8 on the random pattern (A x and Aᵀ g), lse-skewed's rows and
+        # its hubs alone, the hybrid85 residual and the small pattern
+        x, xg = b[:, 0].contiguous(), gg[:, 0].contiguous()
+        ec["chunk_spmv"] = check_k8("random cfd2", k8_calls(
+            cplan, R.values.to(dt), x, xg), name)
+        hubs = sub_rows(splan, np.diff(splan.indptr) > 256, S.values.to(dt),
+                        dev)
+        check_k8("lse-skewed cfd2", {
+            **k8_calls(splan, S.values.to(dt), x, xg),
+            "hubs alone A@x": (hubs[:3] + (x,), k8_table(hubs[3], dev))},
+            name)
+        check_k8("hybrid85 residual", k8_calls(rplan, rvals.to(dt), x, xg),
+                 name)
         ec["chunk_spmm"] = max(ec["chunk_spmm"], check_k6_cases(
             cplan, rplan, R.values.to(dt), rvals.to(dt), b, gg, name, gen))
         ec["chunk_sddmm"] = max(ec["chunk_sddmm"], check_k7_cases(
@@ -2015,6 +2208,8 @@ def main() -> int:
         sB = torch.randn(small.m, 3, generator=gen).to(dev, dt)
         sX = torch.randn(small.n, 3, generator=gen).to(dev, dt)
         check_chunk_kernels("small p=3", small, sv, sB, sX, name)
+        check_k8("small", k8_calls(small, sv, sB[:, 0].contiguous(),
+                                   sX[:, 0].contiguous()), name)
         d = small.maps(dev)
         if not bool((chunk_spmm(d["indptr"], d["cols"], sv, sB)[::7] == 0
                      ).all()):
@@ -2089,6 +2284,9 @@ def main() -> int:
     B1, G1 = B[:, :1].contiguous(), G[:, :1].contiguous()
     launches_r1 = drive("random p=1", R, B1, G1,
                         ("chunk_spmv", "chunk_sddmm", "gather"))
+    if launches_r1["chunk_spmv"] != 2:       # A x, then Aᵀ g over plan.T
+        raise AssertionError("random p=1: chunk_spmv launched "
+                             f"{launches_r1['chunk_spmv']} times, not 2")
     C = torch.randn(R.nnz, generator=gen).to(dev)
     zero_counters()
     got = sddmm_fwd_bwd(R, G, B, C, "auto")
@@ -2329,6 +2527,8 @@ def main() -> int:
     print(json.dumps({"k7_times": k7, "card": card}))
     k9 = k9_times(T, tplan, tgrid, TB, GT, dev)
     print(json.dumps({"k9_times": k9, "card": card}))
+    k8 = k8_times(R, cplan, S, H, dev, probes=False)
+    print(json.dumps({"k8_times": k8, "card": card}))
     es = 4
     n, m, K = N, N, plan.K
     cells = valid_cells(plan.offsets.tolist(), n, m)
@@ -2340,6 +2540,7 @@ def main() -> int:
     idx_pad = torch.where(maps["src_of_grid"] >= 0, maps["src_of_grid"],
                           A.nnz)
     cm = cplan.maps(dev)
+    rpk = plan_packs(cplan, dev, SPMV_PACK)
     csr_r = torch.sparse_csr_tensor(cm["indptr"], cm["cols"], R.values,
                                     (n, m))
     x1 = B1.view(-1)
@@ -2391,7 +2592,7 @@ def main() -> int:
         ("chunk_spmv", "torchsparsegradutils_tpu_torch/csrc/chunk_spmv.cu",
          "torchsparsegradutils_tpu/kernels/chunk_spmm.py:296 (K8 "
          "chunk_spmv)", launches_r1,
-         lambda: chunk_spmv(cm["indptr"], cm["cols"], R.values, x1),
+         lambda: chunk_spmv(cm["indptr"], cm["cols"], R.values, x1, rpk),
          lambda: chunk_spmv_plain(cm["indptr"], cm["cols"], R.values, x1),
          lambda: torch.sparse.mm(csr_r, B1),
          bound(nnz_r * es + idx_bytes + (ucols + n) * es, 2 * nnz_r)),
@@ -2514,6 +2715,12 @@ def main() -> int:
             row["per_launch"] = k7
         if name == "tri_dia":
             row["per_launch"] = k9
+        if name == "chunk_spmv":
+            # the event times of K8 and the library call are the host's
+            # pace: their profiled device times
+            row["per_launch"] = k8
+            row["device_ms"] = device_ms(kern, "chunk_spmv_kernel")
+            row["library_device_ms"] = device_ms(lib, "")
         if name == "chunk_bwd_pass1":
             row["device_ms"] = device_ms(kern, "bwd_rows")
         if name in ("lse_rows", "lse_rows_bwd"):
@@ -2537,7 +2744,8 @@ def main() -> int:
 if __name__ == "__main__":
     t0 = time.perf_counter()
     mode = {"--k1": "k1", "--k2": "k2", "--k6": "k6", "--k7": "k7",
-            "--k9": "k9", "--k10": "k10"}.get(" ".join(sys.argv[1:]))
+            "--k8": "k8", "--k9": "k9", "--k10": "k10"}.get(
+                " ".join(sys.argv[1:]))
     rc = compare(mode) if mode else main()
     print(f"chip_smoke: {time.perf_counter() - t0:.1f} s", file=sys.stderr)
     sys.exit(rc)

@@ -1,17 +1,18 @@
 """Probe of the chunk LSE kernels' pack size T and lane groups G on the
 card (K10 and K11, ``torchsparsegradutils_tpu_torch/csrc/chunk_lse.cu``).
 
-The kernels take one pack size, ``PACK`` (``kernels/chunk_lse.py``:
-``PACK_ENTRIES``), and the lane group of each pack from the host's plan.
-This script builds scratch copies of ``csrc/`` with ``PACK`` set to
-1,024, 2,048 and 4,096 (under ``build/lse_pack_probe/``, one ``nvcc``
-each, all at once), plans lse-skewed's rows and the random pattern's rows
-at cfd2 scale (``chip_smoke.py``'s shapes) with ``lse_packs`` at each T,
-checks each build once against the plain version, and times K10
-(``include_zeros``) and K11 per launch by ``torch.profiler``: at each T
-with the plan's lane groups, and at the committed T with G fixed at 4,
-8, 16 and 32 for every pack of several rows.  The sweep runs ``turns``
-times in turn; prints one JSON line with the card's name and power limit.
+The kernels take one pack size, ``PACK`` (``csrc/row_packs.cuh``;
+``kernels/row_packs.py``: ``PACK_ENTRIES``), and the lane group of each
+pack from the host's plan.  This script builds scratch copies of
+``csrc/`` with ``PACK`` set to 1,024, 2,048 and 4,096 (under
+``build/lse_pack_probe/``, one ``nvcc`` each, all at once), plans
+lse-skewed's rows and the random pattern's rows at cfd2 scale
+(``chip_smoke.py``'s shapes) with ``lse_packs`` at each T, checks each
+build once against the plain version, and times K10 (``include_zeros``)
+and K11 per launch by ``torch.profiler``: at each T with the plan's lane
+groups, and at the committed T with G fixed at 4, 8, 16 and 32 for every
+pack of several rows.  The sweep runs ``turns`` times in turn; prints
+one JSON line with the card's name and power limit.
 
     python3 scripts/lse_pack_probe.py [turns]
 
@@ -46,10 +47,12 @@ LINE = f"constexpr int PACK = {chunk_lse.PACK_ENTRIES};"
 
 
 def build(out_root):
-    """``{T: ctypes.CDLL}`` of ``chunk_lse.cu`` built at each pack size,
-    without its float64 entries (above 48 KB of shared memory at 4,096)."""
+    """``{T: ctypes.CDLL}`` of ``chunk_lse.cu`` built at each pack size
+    (``PACK`` in ``row_packs.cuh``), without its float64 entries (above
+    48 KB of shared memory at 4,096)."""
+    packs = (_build.CSRC / "row_packs.cuh").read_text()
+    assert packs.count(LINE) == 1, f"{LINE!r} not found in row_packs.cuh"
     src = (_build.CSRC / "chunk_lse.cu").read_text()
-    assert src.count(LINE) == 1, f"{LINE!r} not found in chunk_lse.cu"
     src, k = re.subn(r"\nint tsgu_\w+_f64\(.*?\n}\n", "\n", src,
                      flags=re.S)
     assert k == 2, "chunk_lse.cu's float64 entries not found"
@@ -58,8 +61,9 @@ def build(out_root):
         d = out_root / f"T{T}"
         shutil.rmtree(d, ignore_errors=True)
         shutil.copytree(_build.CSRC, d)
-        (d / "chunk_lse.cu").write_text(
-            src.replace(LINE, f"constexpr int PACK = {T};"))
+        (d / "chunk_lse.cu").write_text(src)
+        (d / "row_packs.cuh").write_text(
+            packs.replace(LINE, f"constexpr int PACK = {T};"))
         cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(d), "-o",
                str(d / "libchunk_lse.so"), str(d / "chunk_lse.cu")]
         procs[T] = subprocess.Popen(cmd, stdout=subprocess.PIPE,

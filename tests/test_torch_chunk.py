@@ -31,7 +31,7 @@ from torchsparsegradutils_tpu.types import StaticArray as JStatic
 from torchsparsegradutils_tpu_torch import (SparseCOO, SparseCSR, sddmm,
                                             sparse_mm, to_arrays)
 from torchsparsegradutils_tpu_torch.kernels import chunk_spmm as cs
-from torchsparsegradutils_tpu_torch.kernels import dia
+from torchsparsegradutils_tpu_torch.kernels import dia, row_packs
 from torchsparsegradutils_tpu_torch.ops import spmm as ops
 from torchsparsegradutils_tpu_torch.types import StaticArray
 from torchsparsegradutils_tpu_torch.utils.random_sparse import (
@@ -416,6 +416,67 @@ def test_functions_gradcheck(p):
     torch.testing.assert_close(
         cs.ChunkSpmm.apply(plan.T, plan.to_T(vals), X), dense.T @ X,
         rtol=1e-12, atol=1e-12)
+
+
+def test_chunk_spmv_pack_table_check_refuses_another_pattern():
+    # the check K8's wrapper makes before a launch, run on the CPU: a
+    # table cut for another (n, nnz), or at another pack size, raises;
+    # None builds the plan's own at K8's size
+    T = cs.SPMV_PACK
+    ip, cols = torch.tensor([0, 1, 3]), torch.tensor([0, 1, 0])
+    own = row_packs.pack_table(ip.numpy(), "cpu", T)
+    built = row_packs._packs_for("chunk_spmv", ip, cols, None, T)
+    assert torch.equal(built.table, own.table) and built[1:] == own[1:]
+    assert built.T == T != row_packs.PACK_ENTRIES
+    assert row_packs._packs_for("chunk_spmv", ip, cols, own, T) is own
+    for other in ([0, 1, 2, 3], [0, 1, 4], [0, 3]):
+        with pytest.raises(ValueError, match="chunk_spmv: packs were cut"):
+            row_packs._packs_for("chunk_spmv", ip, cols,
+                                 row_packs.pack_table(np.array(other),
+                                                      "cpu", T), T)
+    with pytest.raises(ValueError, match="cut at 2048 entries a pack, the "
+                                         "kernel stages 512"):
+        row_packs._packs_for("chunk_spmv", ip, cols,
+                             row_packs.pack_table(ip.numpy()), T)
+    # on CPU tensors the wrapper takes the plain version, table or not
+    x = torch.tensor([2.0, 3.0])
+    v = torch.tensor([1.0, 2.0, 4.0])
+    assert cs.chunk_spmv(ip, cols, v, x, own).tolist() == [2.0, 14.0]
+    assert cs.chunk_spmv(ip, cols, v, x).tolist() == [2.0, 14.0]
+
+
+def test_chunk_spmm_p1_builds_no_pack_table_on_the_cpu(plain_calls):
+    # ChunkSpmm passes the plan's cached table on the card only
+    rows, cols = pattern(40, 30, 200, 5)
+    plan = cs.build_chunk_plan(StaticArray(rows), StaticArray(cols), 40, 30)
+    vals = torch.randn(plan.nnz, dtype=torch.float64, requires_grad=True)
+    x = torch.randn(30, 1, dtype=torch.float64, requires_grad=True)
+    out = cs.ChunkSpmm.apply(plan, vals, x)
+    out.sum().backward()
+    assert plain_calls["chunk_spmv_plain"] == 2         # A x and Aᵀ g
+    assert plan not in row_packs._PLAN_PACKS
+    assert plan.T not in row_packs._PLAN_PACKS
+
+
+def test_plan_packs_caches_a_table_per_pack_size():
+    # K8's table (SPMV_PACK) and K10's and K11's (PACK_ENTRIES) of one
+    # plan are cached apart, each the pack_table of the plan at its size
+    rows, cols = pattern(300, 200, 4000, 6, dense_row=7)
+    plan = cs.build_chunk_plan(StaticArray(rows), StaticArray(cols), 300,
+                               200)
+    k8 = row_packs.plan_packs(plan, "cpu", cs.SPMV_PACK)
+    lse = row_packs.plan_packs(plan, "cpu")
+    assert row_packs.plan_packs(plan, "cpu", cs.SPMV_PACK) is k8
+    assert row_packs.plan_packs(plan, "cpu") is lse
+    assert (k8.T, lse.T) == (cs.SPMV_PACK, row_packs.PACK_ENTRIES)
+    for pk, T in ((k8, cs.SPMV_PACK), (lse, row_packs.PACK_ENTRIES)):
+        assert torch.equal(pk.table, row_packs.pack_table(plan.indptr,
+                                                          "cpu", T).table)
+        starts = pk.table[:, 0].numpy()
+        ents = np.diff(plan.indptr[starts])
+        several = np.diff(starts) > 1
+        assert (ents[several] <= T).all()
+    assert k8.table.shape[0] > lse.table.shape[0]
 
 
 def test_chunk_wrappers_refuse_non_cpu_tensors():

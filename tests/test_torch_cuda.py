@@ -17,7 +17,7 @@ from torchsparsegradutils_tpu_torch import (SparseCOO, sddmm,
                                             sparse_bidir_logsumexp,
                                             sparse_logsumexp, sparse_mm,
                                             sparse_triangular_solve)
-from torchsparsegradutils_tpu_torch.kernels import _build, dia
+from torchsparsegradutils_tpu_torch.kernels import _build, dia, row_packs
 from torchsparsegradutils_tpu_torch.kernels import chunk_spmm as cs
 from torchsparsegradutils_tpu_torch.kernels.chunk_lse import (
     LsePacks, lse_rows, lse_rows_bwd, lse_rows_bwd_plain, lse_rows_plain,
@@ -308,6 +308,110 @@ def test_chunk_wrappers_refuse_what_the_kernels_do_not_take(dev):
         chunk_spmv(ip, ip[:2], x[0, :2], x)
     with pytest.raises(ValueError, match="CUDA device"):
         chunk_spmm(ip, ip[:2].cpu(), x[0, :2], x)
+
+
+def _spmv_edge_cases():
+    """(indptr, m) at the edges of K8's row packs (T = SPMV_PACK = 512
+    entries): the LSE pack edge pattern (rows of 256 and 257 entries, of
+    1,024 to 4,097 (lone rows of several chunks), 2,048 entries in rows
+    of 16 (full packs), 3,000 empty rows, every lane group; n > m), and
+    rows of 256 and 257, a run of 1,500 empty rows, rows of 30 and 100
+    entries whose packs end where the next row would straddle T, rows of
+    2,047 and 2,049 (n < m)."""
+    _, m, indptr, _ = pack_edge_pattern()
+    lens = ([256, 257, 3] + [0] * 1500 + [30] * 200 + [100] * 50
+            + [2047, 1, 2049, 2] + [7] * 300)
+    return [(indptr, m),
+            (np.concatenate([[0], np.cumsum(lens)]).astype(np.int64),
+             200_000)]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("case", [0, 1])
+def test_chunk_spmv_at_pack_edges(dev, dtype, case):
+    indptr, m = _spmv_edge_cases()[case]
+    n, nnz = len(indptr) - 1, int(indptr[-1])
+    assert (n > m) == (case == 0)
+    T = cs.SPMV_PACK
+    starts = row_packs.lse_packs(indptr, T)
+    ents = indptr[starts[1:]] - indptr[starts[:-1]]
+    assert (np.diff(starts) == T // 2).any()            # rows cap a pack
+    assert (ents[np.diff(starts) > 1] >= T - 2).any()   # full packs
+    rng = np.random.default_rng(case)
+    ip = torch.from_numpy(indptr).to(dev)
+    cols = torch.from_numpy(rng.integers(0, m, nnz)).to(dev)
+    vals = torch.from_numpy(rng.standard_normal(nnz)).to(dev, dtype)
+    x = torch.from_numpy(rng.standard_normal(m)).to(dev, dtype)
+    pk = pack_table(indptr, dev, T)
+    before = chunk_spmv.launches
+    y, again, built = (chunk_spmv(ip, cols, vals, x, p)
+                       for p in (pk, pk, None))
+    torch.cuda.synchronize()
+    assert chunk_spmv.launches == before + 3
+    assert y.dtype == dtype and y.shape == (n,)
+    assert torch.equal(y, again) and torch.equal(y, built)
+    assert bool((y[torch.from_numpy(np.diff(indptr) == 0).to(dev)] == 0
+                 ).all())                              # empty rows write 0
+    # the plain version in float64 on the same values
+    close(y, chunk_spmv_plain(ip, cols, vals.double(), x.double()), dtype)
+
+
+def test_chunk_spmv_refuses_a_pack_table_of_another_pattern(dev):
+    ip = torch.tensor([0, 1, 3], device=dev)
+    cols = torch.tensor([0, 1, 0], device=dev)
+    v = torch.ones(3, device=dev)
+    T = cs.SPMV_PACK
+    before = chunk_spmv.launches
+    with pytest.raises(ValueError, match="cut for 3 rows and 3 entries"):
+        chunk_spmv(ip, cols, v, v[:2], pack_table(np.array([0, 1, 2, 3]),
+                                                  dev, T))
+    with pytest.raises(ValueError, match="cut for 2 rows and 4 entries"):
+        chunk_spmv(ip, cols, v, v[:2], pack_table(np.array([0, 1, 4]), dev,
+                                                  T))
+    with pytest.raises(ValueError, match="packs must be"):
+        chunk_spmv(ip, cols, v, v[:2], pack_table(np.array([0, 1, 3]),
+                                                  "cpu", T))
+    # the LSE kernels' table of the same pattern: cut at another size
+    with pytest.raises(ValueError, match="cut at 2048 entries a pack"):
+        chunk_spmv(ip, cols, v, v[:2], pack_table(np.array([0, 1, 3]), dev))
+    assert chunk_spmv.launches == before
+
+
+def test_sparse_mm_p1_on_card_runs_k8_over_cached_pack_tables(
+        dev, monkeypatch):
+    # the public p = 1 path: K8 twice a fwd+bwd step (A x, then Aᵀ g over
+    # the transpose plan), over the plans' cached tables (no table built,
+    # so no host copy, after the first step), its plain version never
+    A = rand_sparse((3000, 2500), 30_000, layout="csr", device="cpu")
+    g = torch.Generator().manual_seed(14)
+    B, G = torch.randn(2500, 1, generator=g), torch.randn(3000, 1,
+                                                          generator=g)
+    built = []
+
+    def plain(*args):
+        raise AssertionError("chunk_spmv_plain ran on the card")
+    monkeypatch.setattr(cs, "chunk_spmv_plain", plain)
+    table = row_packs.pack_table
+    monkeypatch.setattr(row_packs, "pack_table",
+                        lambda *a, **k: built.append(1) or table(*a, **k))
+
+    def run(device):
+        v = A.values.to(device).requires_grad_(True)
+        b = B.to(device).requires_grad_(True)
+        out = sparse_mm(A.with_data(v), b)
+        return (out, *torch.autograd.grad(out, (v, b), G.to(device)))
+
+    got = []
+    for step in range(2):
+        before, tables = chunk_spmv.launches, len(built)
+        got.append(run(dev))
+        torch.cuda.synchronize()
+        assert chunk_spmv.launches == before + 2
+        assert len(built) - tables <= (2 if step == 0 else 0)
+    monkeypatch.undo()
+    for x, again, ref in zip(*got, run("cpu")):
+        assert torch.equal(x, again)
+        close(x, ref, torch.float32)
 
 
 NB = dia_tri.KERNEL_NB   # the walk's row block

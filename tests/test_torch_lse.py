@@ -20,6 +20,7 @@ the JAX ``backend="xla"`` path (the JAX grid and chunk routes take no
 float64, the port's do).
 """
 
+import hashlib
 import re
 
 import jax
@@ -38,6 +39,7 @@ from torchsparsegradutils_tpu_torch import (SparseCOO, SparseCSC,
                                             sparse_logsumexp, to_arrays)
 from torchsparsegradutils_tpu_torch.kernels import chunk_lse as pcl
 from torchsparsegradutils_tpu_torch.kernels import grid_lse as pgl
+from torchsparsegradutils_tpu_torch.kernels import row_packs
 from torchsparsegradutils_tpu_torch.kernels.chunk_spmm import (
     build_chunk_plan)
 from torchsparsegradutils_tpu_torch.ops import logsumexp as pops
@@ -666,3 +668,31 @@ def test_wrappers_refuse_a_pack_table_of_another_pattern():
         pcl._packs_for("lse_rows", ip, v,
                        pcl.pack_table(ip.numpy())._replace(
                            table=torch.zeros(2, 3, dtype=torch.int32)))
+
+
+def test_row_packs_and_chunk_lse_export_the_same_objects():
+    # the planner lives in kernels/row_packs.py, which K8 shares; K10's
+    # and K11's module re-exports it unchanged
+    for name in row_packs.__all__ + ["_packs_for"]:
+        assert getattr(pcl, name) is getattr(row_packs, name), name
+    assert set(row_packs.__all__) - {"PACK_ENTRIES", "LONG_ROW"} \
+        <= set(pcl.__all__)
+
+
+def test_pack_table_is_the_table_cut_before_the_planner_moved():
+    # the tables K10 and K11 read did not change with the move: a literal
+    # one (empty-row runs, rows of 300, 257 and 256 entries, a pack cut at
+    # T / 2 rows) and digests of two patterns' tables, taken before it
+    lens = [3, 0, 0, 300, 1, 0, 257, 256, 2, 2] + [0] * 1030 + [5, 40]
+    indptr = np.concatenate([[0], np.cumsum(lens)])
+    assert pcl.pack_table(indptr).table.tolist() == [
+        [0, 0, 2], [3, 3, 5], [4, 303, 2], [6, 304, 5], [7, 561, 2],
+        [1031, 821, 2], [1042, 866, 0]]
+    for ip, lines, digest in (
+            (pack_edge_pattern()[2], 43, "7db11aff727cea40392f8c2e5ab46014"
+             "ed7bff1ec042726ab0025885117f1ac1"),
+            (lse_pattern()[0].indptr, 14, "7318381c8e08a13246e7baa983bad15c"
+             "d7b0fabb38b48c4704734b7ff3bf231d")):
+        t = pcl.pack_table(ip).table.numpy()
+        assert t.shape == (lines, 3)
+        assert hashlib.sha256(t.tobytes()).hexdigest() == digest

@@ -273,7 +273,7 @@ def test_backend_contracts():
     torch.testing.assert_close(sparse_mm(S, torch.ones(64, 4),
                                          backend="pallas"),
                                sparse_mm(S, torch.ones(64, 4)))
-    ell_msg = "ROADMAP.md, queue 1 item 10: ELL engine"
+    ell_msg = "ROADMAP.md, queue 1: ELL engine"
     with pytest.raises(NotImplementedError, match=re.escape(ell_msg)):
         sparse_mm(S, torch.ones(64, 4), backend="ell")
     with pytest.raises(NotImplementedError, match=re.escape(ell_msg)):

@@ -13,12 +13,14 @@
 // is finished where it is read: no partials, no combine pass, no
 // atomics, and the same bits on every run.
 //
-// The host plans the packs (kernels/chunk_lse.py:pack_table), cached
+// The host plans the packs (kernels/row_packs.py:pack_table), cached
 // with the pattern: consecutive rows holding at most PACK entries and
 // PACK / 2 rows, or one row of more than LONG_ROW (256) entries alone.
 // The table holds each pack's first row, first entry and lane group
 // (log2 G, from the pack's mean row length), and a last line (n, nnz,
-// 0).  One block takes one pack:
+// 0).  The pack loop, its merges and the table's reader are
+// row_packs.cuh's, which the chunk SpMV (chunk_spmv.cu) shares.  One
+// block takes one pack:
 //
 //   * a pack of several rows is staged in shared memory in one burst:
 //     its values, its slice of indptr (as offsets in the pack) and, for
@@ -44,7 +46,7 @@
 // Shapes: indptr (n + 1,) int64, vals (nnz,) of T, packs (npacks + 1, 3)
 // int64, out and g (n,) and the sums in float (T = float or bfloat16) or
 // double (T = double); d (nnz,) of T.  The pack size is PACK = 2048
-// entries (kernels/chunk_lse.py:PACK_ENTRIES), at most 37 KB of dynamic
+// entries (kernels/row_packs.py:PACK_ENTRIES), at most 37 KB of dynamic
 // shared memory a block (K11 in double), under the 48 KB that needs no
 // opt-in.
 //
@@ -55,18 +57,13 @@
 // the packs do about it: a block has a whole pack's loads in flight at
 // once (8 KB of values in f32), where one warp a row had a burst of at
 // most a light row's 13 loads.
-#include "tsgu_common.cuh"
+#include "row_packs.cuh"
 
 #include <math.h>
 
 namespace {
 
-constexpr int WARPS = 8;
-constexpr int THREADS = WARPS * 32;
-constexpr unsigned FULL = 0xffffffffu;
-// Entries and rows a pack of several rows may hold (the host's plan).
-constexpr int PACK = 2048;
-constexpr int PACK_ROWS = PACK / 2;
+using namespace tsgu::packs;
 
 __device__ __forceinline__ float ex(float x) { return expf(x); }
 __device__ __forceinline__ double ex(double x) { return exp(x); }
@@ -74,9 +71,6 @@ __device__ __forceinline__ float lg(float x) { return logf(x); }
 __device__ __forceinline__ double lg(double x) { return log(x); }
 __device__ __forceinline__ bool fin(float x) { return fabsf(x) < INFINITY; }
 __device__ __forceinline__ bool fin(double x) { return fabs(x) < INFINITY; }
-
-template <typename A>
-__device__ __forceinline__ A mx(A a, A b) { return b > a ? b : a; }
 
 // The row's result from its max m and s = sum of exp(v - m) over its
 // entries: _lse_combine's rules.
@@ -93,35 +87,6 @@ __device__ __forceinline__ A finish(A m, A s, int64_t count, int64_t width,
     shift = mz;
   }
   return S == A(0) ? A(-INFINITY) : shift + lg(S);
-}
-
-// Max and sum over the G lanes of a group (mask: the group's lanes); a
-// fixed butterfly, so every lane of the group gets the same bits.
-template <typename A>
-__device__ __forceinline__ A group_max(A x, int G, unsigned mask) {
-  for (int o = G >> 1; o > 0; o >>= 1) x = mx(x, __shfl_xor_sync(mask, x, o));
-  return x;
-}
-
-template <typename A>
-__device__ __forceinline__ A group_sum(A x, int G, unsigned mask) {
-  for (int o = G >> 1; o > 0; o >>= 1) x += __shfl_xor_sync(mask, x, o);
-  return x;
-}
-
-// Max or sum over the block, in warp order; every thread gets the same
-// bits.  Called by all threads of the block.
-template <bool MAX, typename A>
-__device__ __forceinline__ A block_fold(A x, A* red) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  x = MAX ? group_max(x, 32, FULL) : group_sum(x, 32, FULL);
-  if (lane == 0) red[warp] = x;
-  __syncthreads();
-  A r = red[0];
-#pragma unroll
-  for (int k = 1; k < WARPS; ++k) r = MAX ? mx(r, red[k]) : r + red[k];
-  __syncthreads();
-  return r;
 }
 
 // A row's LSE by G lanes from the staged values sv[b, e).
@@ -151,46 +116,6 @@ __device__ __forceinline__ void row_bwd(A* sv, int b, int e, int li, int G,
   }
 }
 
-// The pack loop both kernels share, over the staged rows of a pack (row
-// i spans [sp[i], sp[i + 1])).  First every lane group of G = 2^lg
-// threads takes rows gi, gi + THREADS / G, ... of at most 8 G entries
-// (every row where G = 32); then every warp takes, one after another,
-// the longer rows of its 32-row chunks with all 32 lanes.  Calls
-// fn(i, b, e, lane in the group, G, the group's lane mask).
-template <typename F>
-__device__ __forceinline__ void walk_rows(const int* sp, int nr, int lg,
-                                          F fn) {
-  const int G = 1 << lg, lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int li = threadIdx.x & (G - 1), long_row = 8 * G;
-  const unsigned mask =
-      G == 32 ? FULL : ((1u << G) - 1u) << (lane & ~(G - 1));
-  for (int i = threadIdx.x >> lg; i < nr; i += THREADS >> lg) {
-    const int b = sp[i], e = sp[i + 1];
-    if (G == 32 || e - b <= long_row) fn(i, b, e, li, G, mask);
-  }
-  if (G == 32) return;
-  for (int c = warp * 32; c < nr; c += THREADS) {
-    const int i = c + lane;
-    unsigned todo = __ballot_sync(
-        FULL, i < nr && sp[i + 1] - sp[i] > long_row);
-    while (todo) {
-      const int k = c + __ffs(todo) - 1;
-      todo &= todo - 1;
-      fn(k, sp[k], sp[k + 1], lane, 32, FULL);
-    }
-  }
-}
-
-struct Pack {
-  int64_t r0, e0, r1, e1;
-  int lg;
-};
-
-__device__ __forceinline__ Pack load_pack(const int64_t* packs) {
-  const int64_t* p = packs + 3 * (int64_t)blockIdx.x;
-  return {p[0], p[1], p[3], p[4], (int)p[2]};
-}
-
 // Load the pack's values, its indptr slice and (with N_ROW_ARRAYS = 2)
 // two per-row arrays into shared memory: every load first, then every
 // store.
@@ -199,7 +124,7 @@ __device__ __forceinline__ void stage_pack(
     const Pack& pk, const int64_t* __restrict__ indptr,
     const T* __restrict__ v, const A* __restrict__ ra,
     const A* __restrict__ rb, A* sv, int* sp, A* sa, A* sb) {
-  constexpr int UV = PACK / THREADS, UP = (PACK_ROWS + THREADS) / THREADS;
+  constexpr int UV = PACK / THREADS;
   constexpr int UR = N_ROW_ARRAYS ? PACK_ROWS / THREADS : 1;
   const int ne = (int)(pk.e1 - pk.e0), nr = (int)(pk.r1 - pk.r0);
   const int t = threadIdx.x;
@@ -210,10 +135,7 @@ __device__ __forceinline__ void stage_pack(
     const int j = u * THREADS + t;
     if (j < ne) xv[u] = tsgu::load_acc(v + pk.e0 + j);
   }
-#pragma unroll
-  for (int u = 0; u < UP; ++u) {
-    if (u * THREADS + t <= nr) xp[u] = indptr[pk.r0 + u * THREADS + t];
-  }
+  load_ptrs(pk, indptr, xp);
   if (N_ROW_ARRAYS) {
 #pragma unroll
     for (int u = 0; u < UR; ++u) {
@@ -227,10 +149,7 @@ __device__ __forceinline__ void stage_pack(
   for (int u = 0; u < UV; ++u) {
     if (u * THREADS + t < ne) sv[u * THREADS + t] = xv[u];
   }
-#pragma unroll
-  for (int u = 0; u < UP; ++u) {
-    if (u * THREADS + t <= nr) sp[u * THREADS + t] = (int)(xp[u] - pk.e0);
-  }
+  store_ptrs(pk, xp, sp);
   if (N_ROW_ARRAYS) {
 #pragma unroll
     for (int u = 0; u < UR; ++u) {
@@ -240,11 +159,6 @@ __device__ __forceinline__ void stage_pack(
       }
     }
   }
-}
-
-// A pack of several rows must fit the staging: the host plans it so.
-__device__ __forceinline__ void check_pack(const Pack& pk) {
-  if (pk.e1 - pk.e0 > PACK || pk.r1 - pk.r0 > PACK_ROWS) __trap();
 }
 
 template <typename T>
@@ -260,7 +174,7 @@ lse_rows_kernel(const int64_t* __restrict__ indptr, const T* __restrict__ v,
   A* sv = reinterpret_cast<A*>(smem);
   A* res = sv + PACK;
   int* sp = reinterpret_cast<int*>(res + PACK_ROWS);
-  const Pack pk = load_pack(packs);
+  const Pack pk = load_pack(packs, blockIdx.x);
   const int t = threadIdx.x;
   if (pk.r1 - pk.r0 == 1) {
     // one row, PACK entries at a time in registers, by the whole block
@@ -324,7 +238,7 @@ lse_rows_bwd_kernel(const int64_t* __restrict__ indptr,
   A* so = sv + PACK;
   A* sg = so + PACK_ROWS;
   int* sp = reinterpret_cast<int*>(sg + PACK_ROWS);
-  const Pack pk = load_pack(packs);
+  const Pack pk = load_pack(packs, blockIdx.x);
   const int t = threadIdx.x;
   if (pk.r1 - pk.r0 == 1) {
     // one row, PACK entries at a time, by the whole block

@@ -4,9 +4,11 @@ Port of ``torchsparsegradutils_tpu/kernels/chunk_spmm.py``.  The TPU
 kernels there cut the entry stream into chunks of C entries, reduce each
 chunk's rows with a one-hot matrix on the MXU and combine the chunks
 with a segment sum, because a TPU cannot scatter.  An H100 reads the
-pattern as CSR: one warp owns one output row (of one column slab, for
-the SpMM and the SDDMM) and walks its entries.  So a plan is only what
-the kernels read, the entries' row pointers and gather columns:
+pattern as CSR: one warp owns one output row of one column slab (the
+SpMM and the SDDMM) and walks its entries, and one block a pack of
+whole rows (the SpMV, over :mod:`.row_packs`' table, cached with the
+plan).  So a plan is only what the kernels read, the entries' row
+pointers and gather columns:
 
     out[r, :] = Σ_{e in row r} val_e · B[col_e, :]     (SpMM, K6)
     dd[e]     = dot(X[row_e, :], Y[col_e, :])          (SDDMM, K7)
@@ -50,6 +52,7 @@ import torch
 
 from ..types import StaticArray
 from . import _build
+from .row_packs import LsePacks, _packs_for, plan_packs
 from .window_gather import WindowGather
 
 __all__ = ["ChunkPlan", "build_chunk_plan", "build_chunk_plan_transpose",
@@ -68,6 +71,9 @@ SLAB_BYTES = 256
 SHORT_SLAB_BYTES = 512
 SHORT_ROW = 8
 MAX_SDDMM_ROWS = 2**31 - 1   # K7 shuffles its column indices as int32
+# K8's pack size (csrc/chunk_spmv.cu SPMV_PACK): the entries a pack of rows
+# holds in K8's row-pack plan (.row_packs at this T)
+SPMV_PACK = 512
 
 
 def _indptr(sorted_rows: np.ndarray, n: int) -> np.ndarray:
@@ -427,12 +433,17 @@ def chunk_spmv_plain(indptr, cols, values, x):
 
 
 def chunk_spmv(indptr: torch.Tensor, cols: torch.Tensor,
-               values: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+               values: torch.Tensor, x: torch.Tensor,
+               packs: Optional[LsePacks] = None) -> torch.Tensor:
     """``y[r] = Σ_{e in [indptr[r], indptr[r+1])} values[e] · x[cols[e]]``:
     x (m,) -> (n,).
 
     CPU tensors take :func:`chunk_spmv_plain`; CUDA tensors launch
-    ``csrc/chunk_spmv.cu`` and raise on what it does not take.
+    ``csrc/chunk_spmv.cu`` over the row packs ``packs`` cut at
+    ``SPMV_PACK`` entries (:func:`.row_packs.plan_packs` of the plan at
+    ``SPMV_PACK``, as :class:`ChunkSpmm` passes them; built from a host
+    copy of ``indptr`` when None, for a direct call) and raise on what it
+    does not take, a table cut for another pattern or size too.
     """
     if all(t.device.type == "cpu" for t in (indptr, cols, values, x)):
         return chunk_spmv_plain(indptr, cols, values, x)
@@ -444,8 +455,9 @@ def chunk_spmv(indptr: torch.Tensor, cols: torch.Tensor,
     out = torch.empty(n, dtype=x.dtype, device=x.device)
     if n == 0:
         return out
+    packs = _packs_for("chunk_spmv", indptr, values, packs, SPMV_PACK)
     _build.launch("chunk_spmv", f"tsgu_chunk_spmv_{suffix}", indptr, cols,
-                  values, x, out, n)
+                  values, x, packs.table, out, packs.table.shape[0] - 1)
     chunk_spmv.launches += 1
     return out
 
@@ -576,8 +588,8 @@ def chunk_bwd_fused_plain(plan: "ChunkPlan", plan_t: "ChunkPlan", values, B,
 
 class ChunkSpmm(torch.autograd.Function):
     """Differentiable ``A @ B`` over a :class:`ChunkPlan`, ``values`` in
-    the plan's entry order; p = 1 runs :func:`chunk_spmv`, wider B
-    :func:`chunk_spmm`.
+    the plan's entry order; p = 1 runs :func:`chunk_spmv` (over the
+    plan's cached row packs on the card), wider B :func:`chunk_spmm`.
 
     Backward, split (``fused`` None, the default): ``d_values =
     ChunkSddmm(plan, G, B)`` and ``d_B = ChunkSpmm(plan.T,
@@ -593,8 +605,10 @@ class ChunkSpmm(torch.autograd.Function):
         d = plan.maps(B.device)
         values, B = values.contiguous(), B.contiguous()
         if B.shape[1] == 1:
-            return chunk_spmv(d["indptr"], d["cols"], values,
-                              B.view(-1)).view(-1, 1)
+            packs = None if B.device.type == "cpu" else plan_packs(
+                plan, B.device, SPMV_PACK)
+            return chunk_spmv(d["indptr"], d["cols"], values, B.view(-1),
+                              packs).view(-1, 1)
         return chunk_spmm(d["indptr"], d["cols"], values, B)
 
     @staticmethod

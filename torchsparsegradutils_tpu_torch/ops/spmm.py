@@ -59,8 +59,8 @@ from ..types import SparseCOO, SparseCSR, is_sparse
 __all__ = ["sparse_mm", "sddmm"]
 
 _NOT_PORTED = ("backend='ell' needs the ELL engine (kernels/ell.py), which "
-               "is not ported yet (ROADMAP.md, queue 1 item 10: ELL "
-               "engine); use backend='auto', 'dia', 'pallas' or 'xla'")
+               "is not ported yet (ROADMAP.md, queue 1: ELL engine); "
+               "use backend='auto', 'dia', 'pallas' or 'xla'")
 
 
 def _check_backend(backend: str):
