@@ -86,6 +86,20 @@ last line:
    unsharded ``loss_fn`` step); K13's time per slab beside its bound,
    plain version and ``torch.sparse.mm``, the sharded steps beside the
    unsharded ones, and the train step with a profile;
+   then (3e, ``phase_solvers``) ``sparse_generic_solve`` and
+   ``sparse_generic_lstsq`` over the Krylov solvers in float32: CG,
+   MINRES and BiCGSTAB on an SPD stencil of the cfd2 shape (25
+   diagonals, 3,056,188 entries: K1, K2 and K3), CG at 8 right-hand
+   sides, CG and MINRES on a random SPD matrix of 65,536 rows (K8, K7),
+   the default LSMR on a tall random matrix (131,072 x 65,536, 1,048,576
+   entries, every column filled), each forward and forward+backward of
+   ``(x**2).sum()``: the matvec kernel must launch once per matvec and
+   no plain version at all, the relative residual (<= 1e-4) and
+   ``Aᵀ gradB`` against the cotangent (<= 1e-4) in float64, gradA
+   against the plain SDDMM in float64, no more host reads than one
+   every ``CHECK_EVERY`` iterations and one at the end; each solve's
+   iterations, wall, event and profiled device ms, busy share, host
+   reads and every host sync by its line, as a ``solvers`` JSON line;
 4. times the chained forward and forward+backward steps, profiles
    seven of them, times the triangular solve's host plans, times K1 per
    launch at p = 128, 16 and 1 and for Aᵀ G (``k1_times``: event and
@@ -113,7 +127,8 @@ last line:
 
 Without a CUDA device it exits 1 and prints no result.
 
-``python3 chip_smoke.py --k1`` prints only K1's ``k1_times`` and the
+``python3 chip_smoke.py --solve`` builds the kernels and runs phase 3e
+alone.  ``python3 chip_smoke.py --k1`` prints only K1's ``k1_times`` and the
 times of the steps that launch it (stencil, hybrid85, stencil p=16,
 sharded-dia fwd+bwd; wall and profiled device time) as one
 ``k1_compare`` line; ``--k2`` prints K2's ``k2_times`` and the same
@@ -2094,6 +2109,358 @@ def parallel_checks(R, A, B, G, gen, dev, card):
             "slabs_of_4": [times[f"S4_slab{s}"] for s in range(4)]}
 
 
+# the solver phase (3e), at cfd2 width in float32: the suite's matrices
+# (benchmarks/sparse_solve_suite.py:35-104) and a tall least-squares one
+SPD_OFFSETS = [1, 2, 3, 49, 50, 51, 2401, 2449, 2450, 2451, 2499, 2500]
+NNZ_SPD_STENCIL = 3_056_188   # 25 diagonals, cut at the borders
+N_SPD_RANDOM = 65_536         # make_spd_sparse(n, 9 n), the suite's random
+LSQ_SHAPE = (131_072, 65_536)
+NNZ_LSQ = 1_048_576
+SOLVE_ST = dict(max_iter=200, rtol=1e-5)   # the suite's settings
+SOLVE_RES = 1e-4      # relative residual and Aᵀ gradB, in float64
+# matvecs of a solver: each loop step's, and those before its loop
+MATVECS = {"linear_cg": (1, 0), "minres": (1, 0), "bicgstab": (2, 0),
+           "lsmr": (2, 1)}
+SOLVE_REPS = 2        # timed repeats of each solve
+
+
+def plain_mv(A, x, transpose=False):
+    """A x (or Aᵀ x) in float64 by gather and ``index_add`` (no kernel)."""
+    import torch
+    rows, cols = A.rows_t(), A.cols_t()
+    n = A.shape[0]
+    if transpose:
+        rows, cols, n = cols, rows, A.shape[1]
+    x = x.double()
+    x2 = x[:, None] if x.ndim == 1 else x
+    out = torch.zeros((n, x2.shape[1]), dtype=torch.float64,
+                      device=x.device)
+    out.index_add_(0, rows, A.values.double()[:, None] * x2[cols])
+    return out[:, 0] if x.ndim == 1 else out
+
+
+def rel(a, b):
+    return ((a - b).norm() / b.norm()).item()
+
+
+class Recorder:
+    """A solver for ``sparse_generic_solve`` / ``sparse_generic_lstsq``
+    that calls a Krylov solver and records each solve in ``log`` (shared
+    by a solve and its transpose solve, so in the order they ran): name,
+    iterations, loop steps (each runs the solver's matvecs once) and host
+    reads."""
+
+    def __init__(self, krylov, log, transpose=False):
+        self.krylov, self.log, self.transpose = krylov, log, transpose
+
+    def __call__(self, A, B, **kw):
+        from torchsparsegradutils_tpu_torch.solvers import common
+        name = self.krylov.__name__
+        steps, reads = common.while_loop.steps, common.host_read.reads
+        M = A.T if self.transpose else A
+        if name == "lsmr":
+            x, it = self.krylov(M, B, **kw)
+        else:
+            x, info = self.krylov(M, B, diagnostics=True, **kw)
+            it = info.iterations
+        self.log.append({"solver": name, "iterations": it,
+                         "steps": common.while_loop.steps - steps,
+                         "reads": common.host_read.reads - reads})
+        return x
+
+
+def take(log):
+    """The solves recorded in ``log`` since the last take, emptying it."""
+    out = [dict(e, iterations=int(e["iterations"])) for e in log]
+    log.clear()
+    return out
+
+
+def solve_timing(run, reps=SOLVE_REPS):
+    """Wall and CUDA-event ms of ``run()`` (one solve, or forward and
+    backward) over ``reps`` calls, each timed alone (a solve reads the
+    card itself), and the profiled device ms (kernels only) of one more
+    call; the busy share is device ms over the unprofiled wall ms."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    wall, event = [], []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        run()
+        end.record()
+        end.synchronize()
+        wall.append((time.perf_counter() - t0) * 1e3)
+        event.append(start.elapsed_time(end))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA
+               and e.self_device_time_total > 0]
+    rows = sorted(((e.key, e.self_device_time_total / 1e3)
+                   for e in kernels), key=lambda r: -r[1])
+    dev_ms = sum(t for _, t in rows)
+    w = sum(wall) / reps
+    return {"wall_ms": w, "wall_ms_runs": wall, "event_ms": sum(event) / reps,
+            "device_ms": dev_ms, "busy_share": dev_ms / w,
+            "kernel_launches": sum(e.count for e in kernels),
+            "top": [[k[:50], t] for k, t in rows[:5]]}
+
+
+@contextlib.contextmanager
+def syncs_seen(where):
+    """Record in ``where`` each host sync that
+    ``torch.cuda.set_sync_debug_mode`` reports inside the block (every
+    one, not only the solvers' counted reads), by the line that made
+    it."""
+    import warnings
+
+    import torch
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            yield
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    for w in seen:
+        if "synchroniz" in str(w.message):
+            key = f"{w.filename.rsplit('/', 2)[-1]}:{w.lineno}"
+            where[key] = where.get(key, 0) + 1
+
+
+def drive_solve(label, op, A, b, solver, kernel, also, kw, fwd_also=()):
+    """One forward, then one forward+backward of ``(x**2).sum()``, of
+    ``op`` (``sparse_generic_solve`` or ``sparse_generic_lstsq``) with the
+    recording ``solver`` pair, the counters set to 0 just before each and
+    read just after: ``kernel`` (the matvec's) must launch once per
+    matvec, ``fwd_also`` in both runs and ``also`` in the backward; no
+    plain version may run, and no solve may read the card more than
+    once a ``CHECK_EVERY`` steps and once at its end.  The
+    checks, then the times.  Returns the phase's record of the solve."""
+    import torch
+    from torchsparsegradutils_tpu_torch.solvers import common
+    lstsq = op.__name__ == "sparse_generic_lstsq"
+    solver_kw = (dict(lstsq=solver[0], transpose_lstsq=solver[1]) if lstsq
+                 else dict(solve=solver[0], transpose_solve=solver[1]))
+
+    def fwd():
+        with torch.no_grad():
+            return op(A, b, **solver_kw, **kw)
+
+    def fwd_bwd():
+        v = A.values.detach().clone().requires_grad_(True)
+        bb = b.detach().clone().requires_grad_(True)
+        x = op(A.with_data(v), bb, **solver_kw, **kw)
+        gv, gb = torch.autograd.grad((x ** 2).sum(), (v, bb))
+        return x, gv, gb
+
+    rec = {}
+    for what, run in (("fwd", fwd), ("fwd_bwd", fwd_bwd)):
+        t_cfg = time.perf_counter()
+        zero_counters()
+        syncs = {}
+        with syncs_seen(syncs):
+            out = run()
+        log = take(solver[0].log)
+        expect = (kernel,) + fwd_also + (also if what == "fwd_bwd" else ())
+        launches = read_counters(f"{label} {what}", expect)
+        plain = {k: v for k, v in PLAIN.items() if v}
+        if plain:
+            raise AssertionError(f"{label} {what}: plain versions ran: "
+                                 f"{plain}")
+        mvs = sum(e["steps"] * MATVECS[e["solver"]][0]
+                  + MATVECS[e["solver"]][1] for e in log)
+        if what == "fwd_bwd" and lstsq:
+            mvs += 1                     # the backward's A x
+        if launches[kernel] != mvs:
+            raise AssertionError(f"{label} {what}: {kernel} launched "
+                                 f"{launches[kernel]} times for {mvs} "
+                                 "matvecs")
+        for e in log:       # the loop's reads, and the warning's
+            most = max(1, -(-e["iterations"] // common.CHECK_EVERY)) + (
+                e["solver"] != "lsmr")
+            if e["reads"] > most:
+                raise AssertionError(f"{label} {what}: {e['reads']} host "
+                                     f"reads in a solve of {e}")
+        r = {"solves": log, "matvecs": mvs, "host_syncs": syncs,
+             "launches": {k: v for k, v in launches.items() if v}}
+        x = out if what == "fwd" else out[0]
+        if not (torch.isfinite(x).all() and x.shape[0] == A.shape[1]):
+            raise AssertionError(f"{label} {what}: bad x")
+        if lstsq:
+            ax_b = plain_mv(A, x) - b.double()
+            r["rel_residual"] = ax_b.norm().item() / b.double().norm().item()
+            r["normal_eq_residual"] = (plain_mv(A, ax_b, True).norm()
+                                       / (A.values.double().norm()
+                                          * ax_b.norm())).item()
+        else:
+            r["rel_residual"] = rel(plain_mv(A, x), b.double())
+            if not r["rel_residual"] <= SOLVE_RES:
+                raise AssertionError(f"{label} {what}: relative residual "
+                                     f"{r['rel_residual']:.3e} > "
+                                     f"{SOLVE_RES}")
+        if what == "fwd_bwd":
+            _, gv, gb = out
+            g = 2 * x.double()
+            # gradB = A⁻ᵀ g, or (Aᵀ)⁺ g for least squares: Aᵀ gradB = g
+            r["gradB_rel"] = rel(plain_mv(A, gb, True), g)
+            if not (torch.isfinite(gv).all() and torch.isfinite(gb).all()):
+                raise AssertionError(f"{label}: non-finite gradients")
+            if not lstsq:
+                gb2 = gb.double()[:, None] if gb.ndim == 1 else gb.double()
+                x2 = x.double()[:, None] if x.ndim == 1 else x.double()
+                ref = -(gb2[A.rows_t()] * x2[A.cols_t()]).sum(-1)
+                r["gradA_max_abs_err"] = close(
+                    f"{label} gradA vs plain SDDMM f64", gv, ref, "float32")
+                if not r["gradB_rel"] <= SOLVE_RES:
+                    raise AssertionError(
+                        f"{label}: |Aᵀ gradB - g| / |g| = "
+                        f"{r['gradB_rel']:.3e} > {SOLVE_RES}")
+        r.update(solve_timing(run))
+        timed = take(solver[0].log)
+        per_call = len(timed) // (SOLVE_REPS + 1)
+        iters = sum(e["iterations"] for e in timed[:per_call])
+        r["reads_per_call"] = sum(e["reads"] for e in timed[:per_call])
+        r["iterations"] = iters
+        r["device_ms_per_iter"] = r["device_ms"] / max(iters, 1)
+        r["wall_ms_per_iter"] = r["wall_ms"] / max(iters, 1)
+        r["steps"] = sum(e["steps"] for e in timed[:per_call])
+        r["timed_iterations"] = [[e["iterations"] for e in timed[
+            c * per_call:(c + 1) * per_call]] for c in range(SOLVE_REPS + 1)]
+        r["wall_us_per_launch"] = 1e3 * r["wall_ms"] / r["kernel_launches"]
+        print(f"  {label} {what}: {iters} iterations "
+              f"({[e['iterations'] for e in log]} in the checked call), "
+              f"residual {r['rel_residual']:.3e}, wall {r['wall_ms']:.2f} "
+              f"ms, device {r['device_ms']:.2f} ms, busy "
+              f"{r['busy_share']:.3f}, {r['kernel_launches']} launches, "
+              f"reads {r['reads_per_call']}, syncs "
+              f"{r['host_syncs']}, {time.perf_counter() - t_cfg:.1f} s")
+        rec[what] = r
+    return rec
+
+
+def phase_solvers(dev, card):
+    """Phase 3e: ``sparse_generic_solve`` and ``sparse_generic_lstsq``
+    over the Krylov solvers at cfd2 width, float32.
+
+    *stencil SPD* (``make_spd_stencil(123_440, SPD_OFFSETS)``, 25
+    diagonals, the DIA route: K1, with K2 and K3 in the backward) with
+    CG, MINRES and BiCGSTAB at one right-hand side and CG at 8; *random
+    SPD* (``make_spd_sparse(65_536, 9 * 65_536)``, the chunk route: K8,
+    K7 in the backward) with CG and MINRES; *least squares*, the default
+    LSMR on a tall random matrix of 131,072 x 65,536 with 1,048,576
+    entries and every column filled.  Each forward and forward+backward
+    of ``(x**2).sum()``: the launch counts (the matvec kernel once per
+    matvec, no plain version), the relative residual and ``Aᵀ gradB``
+    against the cotangent in float64, gradA against the plain SDDMM in
+    float64, a small case against a dense solve, then the times.  Prints
+    one ``solvers`` JSON line."""
+    import numpy as np
+    import torch
+    from torchsparsegradutils_tpu_torch import (
+        make_spd_sparse, make_spd_stencil, sparse_generic_lstsq,
+        sparse_generic_solve)
+    from torchsparsegradutils_tpu_torch import solvers as ps
+    from torchsparsegradutils_tpu_torch.solvers import common
+    from torchsparsegradutils_tpu_torch.utils.random_sparse import (
+        rand_sparse)
+
+    gen = torch.Generator().manual_seed(15)
+    # a small case against a dense solve in float64
+    Sm = make_spd_stencil(2000, [1, 40], generator=gen, device=dev)
+    bs = torch.randn(2000, generator=gen).to(dev)
+    x = sparse_generic_solve(Sm, bs, solve=ps.linear_cg, settings=ps.
+                             LinearCGSettings(max_iter=400, rtol=1e-6))
+    ref = torch.linalg.solve(Sm.todense().double(), bs.double())
+    close("small stencil CG vs dense solve f64", x, ref, "float32",
+          (1e-4, 1e-5))
+    Lm = rand_sparse((3000, 1000), 20_000, layout="csr", generator=gen,
+                     device=dev)
+    bl = torch.randn(3000, generator=gen).to(dev)
+    # the default LSMR's tolerance in tests/test_lstsq.py
+    close("small lstsq vs dense lstsq f64", sparse_generic_lstsq(Lm, bl),
+          torch.linalg.lstsq(Lm.todense().double().cpu(),
+                             bl.double().cpu()[:, None]).solution[:, 0].to(
+                                 dev), "float32", (5e-2, 5e-3))
+
+    t1 = time.perf_counter()
+    A = make_spd_stencil(N, SPD_OFFSETS, layout="csr", generator=gen,
+                         device=dev)
+    R = make_spd_sparse(N_SPD_RANDOM, 9 * N_SPD_RANDOM, layout="csr",
+                        generator=gen, device=dev)
+    L = rand_sparse(LSQ_SHAPE, NNZ_LSQ, layout="csr", generator=gen,
+                    device=dev)
+    if A.nnz != NNZ_SPD_STENCIL:
+        raise AssertionError(f"stencil SPD: {A.nnz} entries")
+    empty = int((np.bincount(L.cols(), minlength=LSQ_SHAPE[1]) == 0).sum())
+    if empty:
+        raise AssertionError(f"least squares: {empty} empty columns")
+    print(f"  matrices built in {time.perf_counter() - t1:.1f} s: stencil "
+          f"SPD {A.nnz}, random SPD {R.nnz}, tall {L.nnz} entries")
+    b = torch.randn(N, generator=gen).to(dev)
+    b8 = torch.randn(N, 8, generator=gen).to(dev)
+    br = torch.randn(N_SPD_RANDOM, generator=gen).to(dev)
+    bl = torch.randn(LSQ_SHAPE[0], generator=gen).to(dev)
+
+    def pair(krylov, transpose=False):
+        """A solver and its transpose solver (``krylov`` itself where A
+        is symmetric), recording into one log."""
+        log = []
+        return Recorder(krylov, log), Recorder(krylov, log, transpose)
+
+    dia_bwd = ("dia_sddmm", "gather")
+    out = {}
+    for name, krylov, settings in (
+            ("cg", ps.linear_cg, ps.LinearCGSettings(**SOLVE_ST)),
+            ("minres", ps.minres, ps.MINRESSettings(**SOLVE_ST)),
+            ("bicgstab", ps.bicgstab, ps.BICGSTABSettings(**SOLVE_ST))):
+        st = dict(settings=settings)
+        out[f"stencil_{name}"] = drive_solve(
+            f"stencil SPD {name}", sparse_generic_solve, A, b, pair(krylov),
+            "dia_spmm", dia_bwd, st, ("gather",))
+        if name == "cg":
+            out["stencil_cg_p8"] = drive_solve(
+                "stencil SPD cg p=8", sparse_generic_solve, A, b8,
+                pair(krylov), "dia_spmm", dia_bwd, st, ("gather",))
+        if name != "bicgstab":
+            out[f"random_{name}"] = drive_solve(
+                f"random SPD {name}", sparse_generic_solve, R, br,
+                pair(krylov), "chunk_spmv", ("chunk_sddmm",), st)
+    out["lstsq_lsmr"] = drive_solve(
+        "least squares lsmr", sparse_generic_lstsq, L, bl,
+        pair(ps.lsmr, transpose=True), "chunk_spmv",
+        ("chunk_sddmm",), {}, ("gather",))
+    print(json.dumps({"solvers": out, "check_every": common.CHECK_EVERY,
+                      "card": card}))
+    return out
+
+
+def solve_only() -> int:
+    """``--solve``: build the kernels and run phase 3e alone."""
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    from torchsparsegradutils_tpu_torch.kernels import _build
+    dev = torch.device("cuda", 0)
+    card = smi_line()
+    print(f"card: {card}")
+    info = _build.build()
+    _build.libraries()
+    print(f"kernels built in {info['seconds']:.1f} s")
+    count_plain()
+    phase_solvers(dev, card)
+    return 0
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -2391,6 +2758,9 @@ def main() -> int:
     print(f"phase 3d: parallel/ on a one-rank NCCL group "
           f"({time.perf_counter() - t0:.1f} s in)")
     k13_row = phase_parallel(R, A, B, G, gen, dev, card)
+    print(f"phase 3e: sparse_generic_solve / sparse_generic_lstsq over the "
+          f"Krylov solvers ({time.perf_counter() - t0:.1f} s in)")
+    phase_solvers(dev, card)
 
     # ---- phase 4: timing ---------------------------------------------------
     print(f"phase 4: timing ({time.perf_counter() - t0:.1f} s in)")
@@ -2746,6 +3116,9 @@ if __name__ == "__main__":
     mode = {"--k1": "k1", "--k2": "k2", "--k6": "k6", "--k7": "k7",
             "--k8": "k8", "--k9": "k9", "--k10": "k10"}.get(
                 " ".join(sys.argv[1:]))
-    rc = compare(mode) if mode else main()
+    if sys.argv[1:] == ["--solve"]:
+        rc = solve_only()
+    else:
+        rc = compare(mode) if mode else main()
     print(f"chip_smoke: {time.perf_counter() - t0:.1f} s", file=sys.stderr)
     sys.exit(rc)

@@ -1,6 +1,6 @@
 """PyTorch port on the card: the CUDA kernels against their plain
-versions at awkward shapes, the main path against the CPU, and the
-wrappers' refusals.
+versions at awkward shapes, the main path (the Krylov solvers and the
+implicit solves too) against the CPU, and the wrappers' refusals.
 
 Every test needs an NVIDIA GPU and skips without one.  The file imports
 nothing of JAX, so the card's machine, which has no JAX, runs it without
@@ -15,8 +15,11 @@ import torch
 
 from torchsparsegradutils_tpu_torch import (SparseCOO, sddmm,
                                             sparse_bidir_logsumexp,
+                                            sparse_generic_lstsq,
+                                            sparse_generic_solve,
                                             sparse_logsumexp, sparse_mm,
                                             sparse_triangular_solve)
+from torchsparsegradutils_tpu_torch import solvers as ps
 from torchsparsegradutils_tpu_torch.kernels import _build, dia, row_packs
 from torchsparsegradutils_tpu_torch.kernels import chunk_spmm as cs
 from torchsparsegradutils_tpu_torch.kernels.chunk_lse import (
@@ -37,7 +40,8 @@ from torchsparsegradutils_tpu_torch.kernels.window_gather import (
     window_gather, window_gather_plain)
 from torchsparsegradutils_tpu_torch.types import StaticArray
 from torchsparsegradutils_tpu_torch.utils.random_sparse import (
-    hybrid_sparse, rand_sparse, rand_sparse_tri, stencil_sparse)
+    hybrid_sparse, make_spd_sparse, make_spd_stencil, rand_sparse,
+    rand_sparse_tri, stencil_sparse)
 from torch_lse_patterns import (EDGE_ALL_NEG_INF, EDGE_PLUS_INF,
                                 lse_pattern, pack_edge_pattern)
 
@@ -847,3 +851,105 @@ def test_sharded_chunk_spmm_on_one_nccl_rank(dev, tmp_path):
             close(got, r, torch.float32)
     finally:
         dist.destroy_process_group()
+
+
+# --------------------------------------------------------------------------
+# the Krylov solvers and the implicit solve on the card
+# --------------------------------------------------------------------------
+
+# (rtol, atol): two iterative solves in float32 that sum in other orders,
+# the JAX solver tests' float32 tolerance against a dense solve
+SOLVE_TOL = (1e-3, 1e-4)
+
+
+def _solver_matrix(route):
+    """An SPD matrix of 3,000 rows on the DIA route (a stencil) or the
+    chunk route (random rows), on the CPU."""
+    if route == "dia":
+        return make_spd_stencil(3000, [1, 60, 61], device="cpu")
+    return make_spd_sparse(3000, 3000 + 2 * 12_000, layout="csr",
+                           device="cpu")
+
+
+def _no_plain(monkeypatch):
+    def refuse(name):
+        def plain(*a, **k):
+            raise AssertionError(f"{name} ran on the card")
+        return plain
+    for mod, name in ((dia, "spmm_core_plain"), (dia, "sddmm_core_plain"),
+                      (cs, "chunk_spmv_plain"), (cs, "chunk_spmm_plain"),
+                      (cs, "chunk_sddmm_plain")):
+        monkeypatch.setattr(mod, name, refuse(name))
+
+
+@pytest.mark.parametrize("route", ["dia", "chunk"])
+@pytest.mark.parametrize("solver", ["linear_cg", "minres", "lsmr"])
+def test_solvers_on_card_launch_their_matvec_and_match_cpu(
+        dev, monkeypatch, route, solver):
+    A = _solver_matrix(route)
+    kernel = spmm_core if route == "dia" else chunk_spmv
+    b = torch.randn(3000, generator=torch.Generator().manual_seed(15))
+
+    def run(device):
+        M, bb = A.with_data(A.values.to(device)), b.to(device)
+        if solver == "lsmr":
+            return ps.lsmr(M, bb, settings=ps.LSMRSettings(max_iter=100))[0]
+        st = (ps.LinearCGSettings if solver == "linear_cg"
+              else ps.MINRESSettings)(max_iter=100, rtol=1e-6)
+        return getattr(ps, solver)(M, bb, settings=st)
+
+    _no_plain(monkeypatch)
+    before = kernel.launches
+    got = run(dev)
+    torch.cuda.synchronize()
+    assert kernel.launches > before
+    monkeypatch.undo()
+    torch.testing.assert_close(got.cpu(), run("cpu"), rtol=SOLVE_TOL[0],
+                               atol=SOLVE_TOL[1])
+
+
+@pytest.mark.parametrize("route", ["dia", "chunk"])
+def test_generic_solve_on_card_matches_cpu(dev, monkeypatch, route):
+    A = _solver_matrix(route)
+    g = torch.Generator().manual_seed(16)
+    B, G = torch.randn(3000, 2, generator=g), torch.randn(3000, 2,
+                                                          generator=g)
+
+    def run(device):
+        v = A.values.to(device).requires_grad_(True)
+        b = B.to(device).requires_grad_(True)
+        x = sparse_generic_solve(A.with_data(v), b, solve=ps.linear_cg,
+                                 settings=ps.LinearCGSettings(rtol=1e-6))
+        return (x, *torch.autograd.grad(x, (v, b), G.to(device)))
+
+    _no_plain(monkeypatch)
+    sddmm_kernel = sddmm_core if route == "dia" else chunk_sddmm
+    before = sddmm_kernel.launches
+    got = run(dev)
+    torch.cuda.synchronize()
+    assert sddmm_kernel.launches == before + 1        # gradA
+    monkeypatch.undo()
+    for x, ref in zip(got, run("cpu")):
+        torch.testing.assert_close(x.cpu(), ref, rtol=SOLVE_TOL[0],
+                                   atol=SOLVE_TOL[1])
+
+
+def test_lstsq_on_card_matches_cpu(dev, monkeypatch):
+    A = rand_sparse((4000, 2000), 30_000, layout="csr", device="cpu")
+    g = torch.Generator().manual_seed(17)
+    B, G = torch.randn(4000, generator=g), torch.randn(2000, generator=g)
+
+    def run(device):
+        v = A.values.to(device).requires_grad_(True)
+        b = B.to(device).requires_grad_(True)
+        x = sparse_generic_lstsq(A.with_data(v), b)
+        return (x, *torch.autograd.grad(x, (v, b), G.to(device)))
+
+    _no_plain(monkeypatch)
+    before = chunk_spmv.launches
+    got = run(dev)
+    torch.cuda.synchronize()
+    assert chunk_spmv.launches > before
+    monkeypatch.undo()
+    for x, ref in zip(got, run("cpu")):
+        torch.testing.assert_close(x.cpu(), ref, rtol=5e-2, atol=5e-3)

@@ -247,6 +247,9 @@ def test_build_key_follows_sources():
     "torchsparsegradutils_tpu_torch.kernels.chunk_lse",
     "torchsparsegradutils_tpu_torch.ops.logsumexp",
     "torchsparsegradutils_tpu_torch.utils.random_sparse",
+    "torchsparsegradutils_tpu_torch.solvers",
+    "torchsparsegradutils_tpu_torch.ops.solve",
+    "torchsparsegradutils_tpu_torch.ops.lstsq",
 ])
 def test_docstring_examples(module_name):
     import doctest

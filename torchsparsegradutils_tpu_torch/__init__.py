@@ -5,9 +5,12 @@ Sparse containers whose gradients stay at the stored entries;
 engines: the DIA engine for diagonal-structured patterns, and the chunk
 engine for general row-sorted patterns and a hybrid pattern's residual;
 ``sparse_triangular_solve`` (banded, level-scheduled, blocked and
-dense algorithms) with the same kind of backward; and
+dense algorithms) with the same kind of backward;
 ``sparse_logsumexp`` / ``sparse_bidir_logsumexp`` (DIA grid, row-ELL
-grid and chunk routes).  The subpackages ``parallel`` (row-sharded,
+grid and chunk routes); and ``sparse_generic_solve`` /
+``sparse_generic_lstsq`` over the Krylov solvers of ``solvers`` (CG,
+BiCGSTAB, MINRES, LSMR), with implicit gradients.  The subpackages
+``parallel`` (row-sharded,
 chunk-sharded and halo-exchange SpMM and the dp × tp flagship train step
 on ``torch.distributed``) and ``models`` (``PairwiseEncoder``) build on
 them.  The SpMM, SDDMM, SpMV, value relayout, banded triangular solve,
@@ -18,14 +21,20 @@ the reference this port is tested against; the port imports none of
 it.
 """
 
+from . import solvers
 from .convert import from_arrays, params_from_arrays, to_arrays
 from .kernels.dia import dia_coverage
 from .ops.logsumexp import sparse_bidir_logsumexp, sparse_logsumexp
+from .ops.lstsq import sparse_generic_lstsq
+from .ops.solve import sparse_generic_solve
 from .ops.spmm import sddmm, sparse_mm
 from .ops.triangular_solve import sparse_triangular_solve
 from .types import SparseCOO, SparseCSC, SparseCSR
+from .utils.random_sparse import make_spd_sparse, make_spd_stencil
 
 __all__ = ["SparseCOO", "SparseCSR", "SparseCSC", "sparse_mm", "sddmm",
            "sparse_triangular_solve", "sparse_logsumexp",
-           "sparse_bidir_logsumexp", "dia_coverage", "from_arrays",
-           "to_arrays", "params_from_arrays"]
+           "sparse_bidir_logsumexp", "sparse_generic_solve",
+           "sparse_generic_lstsq", "solvers", "make_spd_sparse",
+           "make_spd_stencil", "dia_coverage", "from_arrays", "to_arrays",
+           "params_from_arrays"]

@@ -1,7 +1,7 @@
 """Random sparse matrices: uniform, stencil and hybrid patterns.
 
-Port of ``rand_sparse``, ``rand_sparse_tri``, ``stencil_sparse`` and
-``hybrid_sparse`` from
+Port of ``rand_sparse``, ``rand_sparse_tri``, ``stencil_sparse``,
+``hybrid_sparse``, ``make_spd_sparse`` and ``make_spd_stencil`` from
 ``torchsparsegradutils_tpu/utils/random_sparse.py``.  Patterns are built
 on the host with numpy from a seeded ``numpy.random.Generator``
 (vectorised, so a cfd2-scale pattern of 123,440 rows and 3M entries
@@ -30,7 +30,7 @@ import torch
 from ..types import SparseCOO, SparseCSR
 
 __all__ = ["rand_sparse", "rand_sparse_tri", "stencil_sparse",
-           "hybrid_sparse"]
+           "hybrid_sparse", "make_spd_sparse", "make_spd_stencil"]
 
 
 def _stencil_pattern(n: int, m: int, offsets, nnz):
@@ -318,3 +318,106 @@ def hybrid_sparse(shape, offsets, nnz: int, *, dia_coverage: float,
         rows, cols = rows[order], cols[order]
     vals = _values(generator, len(rows), dtype, device)
     return _container(layout, rows, cols, vals, (n, m), index_dtype)
+
+
+def _spd_values(rows, cols, half, pair, n):
+    """Values of a symmetric pattern: entry ``e`` off the diagonal takes
+    ``half[pair[e]]`` (so a mirrored pair shares one value) and each
+    diagonal entry ``1 + Σ|off-diagonal|`` of its row."""
+    d = torch.from_numpy(rows == cols)
+    r = torch.from_numpy(np.asarray(rows, np.int64))
+    twin = half[torch.from_numpy(np.maximum(pair, 0))] if len(half) else \
+        torch.zeros(len(rows), dtype=half.dtype)
+    off = torch.where(d, torch.zeros((), dtype=half.dtype), twin)
+    absrow = torch.zeros(n, dtype=half.dtype).index_add(0, r, off.abs())
+    return torch.where(d, absrow[r] + 1.0, off)
+
+
+def _mirror_pairs(rows, cols, n):
+    """For row-major ``(rows, cols)`` of a symmetric pattern: the index,
+    among the strictly upper entries in their order, of each entry's
+    upper twin (its own index above the diagonal, its mirror's below;
+    -1 on the diagonal)."""
+    upper = cols > rows
+    ukeys = rows[upper] * n + cols[upper]          # ascending: row-major
+    lo, hi = np.minimum(rows, cols), np.maximum(rows, cols)
+    pair = np.searchsorted(ukeys, lo * n + hi)
+    return np.where(rows == cols, -1, pair), int(upper.sum())
+
+
+def make_spd_sparse(n: int, nnz: int, *, layout: str = "coo",
+                    dtype=torch.float32, index_dtype=np.int32, seed: int = 0,
+                    generator=None, device="cuda"):
+    """Random sparse symmetric positive-definite matrix, row-major.
+
+    The JAX package's rule: off-diagonal entries come in mirrored
+    (i, j) / (j, i) pairs with equal values (normal draws times 0.5), and
+    ``diag[i] = 1 + Σ_j |A[i, j]|``, which makes the matrix SPD.
+    ``nnz`` counts every stored entry: ``nnz >= n`` and ``nnz - n`` even.
+
+    Args:
+      seed: seed of the numpy generator that draws the pattern.
+      generator: CPU ``torch.Generator`` for the values (seed 0 if None).
+      device: where the values go.
+    """
+    if nnz < n:
+        raise ValueError(f"make_spd_sparse requires nnz >= n, got {nnz} < {n}")
+    if (nnz - n) % 2:
+        raise ValueError("nnz - n must be even (mirrored off-diagonal pairs)")
+    k_half = (nnz - n) // 2
+    oi, oj = _sample_unique_pairs(np.random.default_rng(seed), n, n, k_half,
+                                  "strict_tril")
+    ar = np.arange(n, dtype=np.int64)
+    rows = np.concatenate([ar, oi, oj])
+    cols = np.concatenate([ar, oj, oi])
+    order = np.lexsort((cols, rows))
+    rows, cols = rows[order], cols[order]
+    half = _values(generator, k_half, dtype, "cpu") * 0.5
+    # the lower draw t is the pair (oi[t], oj[t]); each entry's twin index
+    pair = np.concatenate([np.full(n, -1), np.arange(k_half),
+                           np.arange(k_half)])[order]
+    vals = _spd_values(rows, cols, half, pair, n)
+    return _container(layout, rows, cols, vals.to(device), (n, n),
+                      index_dtype)
+
+
+def make_spd_stencil(n: int, offsets, *, nnz: int = None,
+                     layout: str = "csr", dtype=torch.float32,
+                     index_dtype=np.int32, generator=None, device="cuda"):
+    """Symmetric positive-definite stencil matrix (cfd2-like), row-major.
+
+    The offsets are symmetrised (±d and the main diagonal); mirrored
+    entries share a value and ``diag = 1 + Σ|off|`` per row, as in the
+    JAX package.  ``nnz`` thins the off-diagonal pairs to about that
+    count with the JAX package's fixed draw
+    (``np.random.default_rng(0)``), so both packages give the same
+    pattern; the mirror is found by a sorted search, not per entry.
+
+    Args:
+      generator: CPU ``torch.Generator`` for the values (seed 0 if None).
+      device: where the values go.
+    """
+    offs = np.unique(np.abs(np.asarray(offsets, np.int64)))
+    offs = offs[offs > 0]
+    full = np.concatenate([-offs[::-1], [0], offs])
+    rows, cols = _stencil_pattern(n, n, full, None)
+    if nnz is not None and nnz < len(rows):
+        upper = np.where(cols > rows)[0]
+        keep_pairs = max(0, (nnz - n) // 2)
+        if keep_pairs < len(upper):
+            sel = np.sort(np.random.default_rng(0).choice(
+                upper, keep_pairs, replace=False))
+            # keep the diagonal, the chosen upper entries and their
+            # mirrors: an entry whose (min, max) key is a chosen one
+            keep = rows == cols
+            if keep_pairs:
+                skeys = rows[sel] * n + cols[sel]      # ascending
+                key = np.minimum(rows, cols) * n + np.maximum(rows, cols)
+                pos = np.minimum(np.searchsorted(skeys, key), keep_pairs - 1)
+                keep |= skeys[pos] == key
+            rows, cols = rows[keep], cols[keep]
+    pair, n_upper = _mirror_pairs(rows, cols, n)
+    half = _values(generator, n_upper, dtype, "cpu") * 0.5
+    vals = _spd_values(rows, cols, half, pair, n)
+    return _container(layout, rows, cols, vals.to(device), (n, n),
+                      index_dtype)
