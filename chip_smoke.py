@@ -100,6 +100,20 @@ last line:
    every ``CHECK_EVERY`` iterations and one at the end; each solve's
    iterations, wall, event and profiled device ms, busy share, host
    reads and every host sync by its line, as a ``solvers`` JSON line;
+   then (3f, ``phase_models``) ``SparseMultivariateNormal`` at the
+   flagship's width in float32: the ``PairwiseEncoder(1.5, (1, 48, 48,
+   48))`` factor (110,592 rows, 961,056 strictly lower entries, the
+   diagonal stored too for the LLᵀ forms), S = 128; for each of the
+   four parameterisations ``rsample`` forward and forward+backward of
+   ``(x**2).sum()`` and ``log_prob`` forward and forward+backward: the
+   launch counts (K1 in the covariance samples, K9 in the precision
+   samples and the covariance ``log_prob``, K2 in their backwards, K3;
+   no plain version), outputs and the gradients of ``loc``,
+   ``diagonal`` and the factor's values against the same calls with
+   every kernel on its plain version on the card, the precision forms'
+   solve residual (<= 1e-5) through ``sparse_mm``, then the times; and
+   five Adam steps of a GMRF fit (the loss must fall); one ``models``
+   JSON line;
 4. times the chained forward and forward+backward steps, profiles
    seven of them, times the triangular solve's host plans, times K1 per
    launch at p = 128, 16 and 1 and for Aᵀ G (``k1_times``: event and
@@ -128,7 +142,7 @@ last line:
 Without a CUDA device it exits 1 and prints no result.
 
 ``python3 chip_smoke.py --solve`` builds the kernels and runs phase 3e
-alone.  ``python3 chip_smoke.py --k1`` prints only K1's ``k1_times`` and the
+alone, ``--models`` phase 3f.  ``python3 chip_smoke.py --k1`` prints only K1's ``k1_times`` and the
 times of the steps that launch it (stencil, hybrid85, stencil p=16,
 sharded-dia fwd+bwd; wall and profiled device time) as one
 ``k1_compare`` line; ``--k2`` prints K2's ``k2_times`` and the same
@@ -192,11 +206,11 @@ FUSED = ("chunk_bwd_pass1", "chunk_bwd_pass2")
 GRAD_TOL = (1e-4, 1e-6)  # (rtol, atol): LSE gradients, the JAX tests' own
 FAST_REL = 1e-2  # |gradB - split| / |split| with V stored in bfloat16
 ROUTES = []             # triangular-solve routes taken, in order
-PLAIN = {"dia_spmm_plain": 0,    # K1's, K2's, K6's, K7's, K8's, K9's and
-         "dia_sddmm_plain": 0,   # K13's plain versions called by their
-         "chunk_spmm_plain": 0,  # wrappers
+PLAIN = {"dia_spmm_plain": 0,    # K1's, K2's, K3's, K6's, K7's, K8's,
+         "dia_sddmm_plain": 0,   # K9's and K13's plain versions called by
+         "chunk_spmm_plain": 0,  # their wrappers
          "chunk_spmm_slab_plain": 0, "chunk_sddmm_plain": 0,
-         "chunk_spmv_plain": 0, "tri_dia_plain": 0}
+         "chunk_spmv_plain": 0, "tri_dia_plain": 0, "gather_plain": 0}
 K1_PS = (128, 16, 1)    # K1's widths on the main path: stencil, p=16, matvec
 K2_PS = (128, 16, 2, 1)  # K2's: stencil, p=16, tri-stencil p=2, matvec
 K6_PS = (128, 64, 32, 16, 3)  # K6's widths timed on the random pattern
@@ -345,12 +359,14 @@ def track_routes():
 
 
 def count_plain():
-    """Count calls of K1's, K2's, K6's, K7's, K8's, K9's (the solve's and
-    the block inverses') and K13's plain versions made through their kernels
-    modules (their wrappers' CPU paths) in ``PLAIN``: a step on the card
-    must make none."""
+    """Count calls of K1's, K2's, K3's, K6's, K7's, K8's, K9's (the solve's
+    and the block inverses') and K13's plain versions made through their
+    kernels modules (their wrappers' CPU paths) in ``PLAIN``: a step on
+    the card must make none."""
     from torchsparsegradutils_tpu_torch.kernels import chunk_spmm, dia, dia_tri
-    for mod, key, name in ((dia_tri, "tri_dia_plain", "tri_dia_core_plain"),
+    from torchsparsegradutils_tpu_torch.kernels import window_gather as wg
+    for mod, key, name in ((wg, "gather_plain", "window_gather_plain"),
+                           (dia_tri, "tri_dia_plain", "tri_dia_core_plain"),
                            (dia_tri, "tri_dia_plain", "_build_diag_inv"),
                            (dia, "dia_spmm_plain", "spmm_core_plain"),
                            (dia, "dia_sddmm_plain", "sddmm_core_plain"),
@@ -2443,8 +2459,239 @@ def phase_solvers(dev, card):
     return out
 
 
-def solve_only() -> int:
-    """``--solve``: build the kernels and run phase 3e alone."""
+# the model phase (3f), at the flagship's width in float32: the encoder
+# of parallel/training.py:make_model, strictly lower for the LDLᵀ forms
+# and with its diagonal stored for the LLᵀ forms
+MODEL_VOLUME = (1, 48, 48, 48)
+MODEL_NNZ = 961_056          # strictly lower entries (9 offsets)
+MODEL_S = 128                # samples, and observations
+MODEL_FORMS = {"cov_llt": (True, False), "cov_ldlt": (True, True),
+               "prec_llt": (False, False), "prec_ldlt": (False, True)}
+MODEL_RES = 1e-5             # the precision forms' solve residual
+MODEL_REPS = 3               # timed repeats of each call
+FIT_STEPS, FIT_LR = 5, 3e-2  # examples/fit_sparse_gmrf.py's Adam rate
+
+
+@contextlib.contextmanager
+def plain_kernels():
+    """Every kernel of the model path (K1, K2, K3 and K9) swapped for its
+    plain PyTorch version on the card, at the module attributes its
+    callers read: the reference of phase 3f."""
+    import numpy as np
+    from torchsparsegradutils_tpu_torch.kernels import dia, dia_tri
+    from torchsparsegradutils_tpu_torch.kernels import window_gather as wg
+    from torchsparsegradutils_tpu_torch.ops import triangular_solve as ts
+    saved = [(dia, "spmm_core", dia.spmm_core),
+             (dia, "sddmm_core", dia.sddmm_core),
+             (wg, "window_gather", wg.window_gather),
+             (ts, "tri_dia_core", ts.tri_dia_core)]
+    spmm, sddmm = dia.spmm_core_plain, dia.sddmm_core_plain
+    gather, tri = wg.window_gather_plain, dia_tri.tri_dia_core_plain
+    dia.spmm_core = lambda offs, grid, B, geo=None: spmm(offs, grid, B)
+    dia.sddmm_core = lambda offs, X, Y, geo=None: sddmm(offs, X, Y)
+    wg.window_gather = gather
+    ts.tri_dia_core = lambda offs, grid, B, *, unit: tri(
+        np.asarray(offs, np.int64), grid, B, unit=unit)
+    try:
+        yield
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def model_values(enc, gen, scale):
+    """Encoder values: ``scale · N(0, 1)`` off the diagonal, and a stored
+    diagonal of ``1 + 0.1 |N(0, 1)|`` (diagonally dominant factors)."""
+    import torch
+    vals = scale * torch.randn((len(enc.offsets),) + enc.volume_shape,
+                               generator=gen)
+    for k, off in enumerate(enc.offsets):
+        if not any(off):
+            vals[k] = 1.0 + 0.1 * (vals[k] / scale).abs()
+    return vals
+
+
+def model_expect(form, call, what):
+    """The kernels a model call must launch: K1 for the covariance
+    samples, K9 (and its block inverses) for the precision samples and
+    the covariance ``log_prob``, K3 for the value relayouts, K2 for the
+    gradient at the factor's pattern.  The precision ``log_prob`` runs
+    ``sparse_mm(L.T, ·)`` on an unsorted COO transpose: the generic
+    branch, no kernel."""
+    cov = MODEL_FORMS[form][0]
+    if call == "log_prob" and not cov:
+        return ()
+    main = (("dia_spmm",) if cov and call == "rsample"
+            else ("tri_dia", "tri_dia_inv"))
+    return main + ("gather",) + (("dia_sddmm",) if what == "fwd_bwd"
+                                 else ())
+
+
+def phase_models(dev, card):
+    """Phase 3f: ``SparseMultivariateNormal`` at the flagship's width.
+
+    The ``PairwiseEncoder(1.5, (1, 48, 48, 48))`` factor (n = 110,592,
+    961,056 strictly lower entries; the diagonal stored too for the LLᵀ
+    forms), float32, S = 128.  For each of the four parameterisations,
+    ``rsample`` forward and forward+backward of ``(x**2).sum()`` and
+    ``log_prob`` forward and forward+backward of its sum: the launch
+    counts (:func:`model_expect`; no plain version at all), the outputs
+    and the gradients of ``loc``, ``diagonal`` and the factor's values
+    against the same calls with every kernel on its plain version on the
+    card, the precision forms' solve residual through ``sparse_mm``, then
+    the times.  Then five Adam steps of a GMRF fit (prec-LDLᵀ, 128
+    observations from a ground-truth model): the loss must fall.  Prints
+    one ``models`` JSON line."""
+    import numpy as np
+    import torch
+    from torchsparsegradutils_tpu_torch import sparse_mm
+    from torchsparsegradutils_tpu_torch.models import (
+        PairwiseEncoder, SparseMultivariateNormal)
+
+    t1 = time.perf_counter()
+    gen = torch.Generator().manual_seed(16)
+    encs = {ldlt: PairwiseEncoder(1.5, MODEL_VOLUME, diag=not ldlt,
+                                  upper=False, layout="coo")
+            for ldlt in (False, True)}
+    factors = {ldlt: enc(model_values(enc, gen, 0.05).to(dev))
+               for ldlt, enc in encs.items()}
+    n = encs[True].volume_numel
+    if factors[True].nnz != MODEL_NNZ or factors[False].nnz != MODEL_NNZ + n:
+        raise AssertionError(f"model factors: {factors[True].nnz} and "
+                             f"{factors[False].nnz} entries")
+    loc = (0.1 * torch.randn(n, generator=gen)).to(dev)
+    D = torch.exp(0.2 * torch.randn(n, generator=gen)).to(dev)
+    print(f"  factors built in {time.perf_counter() - t1:.1f} s: n {n}, "
+          f"{factors[True].nnz} and {factors[False].nnz} entries")
+
+    def dist(form, grad):
+        cov, ldlt = MODEL_FORMS[form]
+        L = factors[ldlt]
+        leaves = [L.values.detach().clone(), loc.detach().clone()] + (
+            [D.detach().clone()] if ldlt else [])
+        for x in leaves:
+            x.requires_grad_(grad)
+        kw = {"scale_tril" if cov else "precision_tril":
+              L.with_data(leaves[0])}
+        return SparseMultivariateNormal(
+            leaves[1], leaves[2] if ldlt else None, **kw), leaves
+
+    def eps_gen():
+        return torch.Generator(device=dev).manual_seed(161)
+
+    obs = {}
+    for form in MODEL_FORMS:
+        obs[form] = dist(form, False)[0].sample(
+            (MODEL_S,), generator=torch.Generator(device=dev).manual_seed(
+                162))
+
+    def call_fn(form, call, what):
+        def run():
+            grad = what == "fwd_bwd"
+            with torch.set_grad_enabled(grad):
+                d, leaves = dist(form, grad)
+                if call == "rsample":
+                    out = d.rsample((MODEL_S,), generator=eps_gen())
+                    loss = (out ** 2).sum()
+                else:
+                    out = d.log_prob(obs[form])
+                    loss = out.sum()
+                if not grad:
+                    return (out,)
+                return (out,) + torch.autograd.grad(loss, leaves)
+        return run
+
+    names = ("out", "grad_values", "grad_loc", "grad_diagonal")
+    rec = {}
+    for form, (cov, ldlt) in MODEL_FORMS.items():
+        for call in ("rsample", "log_prob"):
+            for what in ("fwd", "fwd_bwd"):
+                label = f"{form} {call} {what}"
+                run = call_fn(form, call, what)
+                zero_counters()
+                got = run()
+                expect = model_expect(form, call, what)
+                launches = read_counters(label, expect)
+                plain = {k: v for k, v in PLAIN.items() if v}
+                if plain:
+                    raise AssertionError(f"{label}: plain versions ran: "
+                                         f"{plain}")
+                r = {"launches": {k: v for k, v in launches.items() if v}}
+                with plain_kernels():
+                    ref = run()
+                r["max_abs_err"] = {
+                    nm: close(f"{label} {nm} vs plain", g, rf, "float32")
+                    for nm, g, rf in zip(names, got, ref)}
+                if call == "rsample" and what == "fwd" and not cov:
+                    # (I + L)ᵀ x = ε/√D (Lᵀ x = ε for LLᵀ), x the centred
+                    # samples
+                    X = (got[0] - loc).T
+                    L = factors[ldlt]
+                    E = torch.randn((MODEL_S, n), generator=eps_gen(),
+                                    device=dev).T
+                    lhs = sparse_mm(L.T, X) + (X if ldlt else 0)
+                    rhs = E / torch.sqrt(D)[:, None] if ldlt else E
+                    r["residual"] = rel(lhs, rhs)
+                    print(f"  {label}: solve residual "
+                          f"{r['residual']:.3e}")
+                    if not r["residual"] <= MODEL_RES:
+                        raise AssertionError(
+                            f"{label}: solve residual {r['residual']:.3e} "
+                            f"> {MODEL_RES}")
+                del got, ref
+                r.update(solve_timing(run, MODEL_REPS))
+                print(f"  {label}: wall {r['wall_ms']:.2f} ms, event "
+                      f"{r['event_ms']:.2f} ms, device "
+                      f"{r['device_ms']:.2f} ms, busy "
+                      f"{r['busy_share']:.3f}, {r['kernel_launches']} "
+                      "launches")
+                rec[f"{form}_{call}_{what}"] = r
+
+    # a GMRF fit, as examples/fit_sparse_gmrf.py: prec-LDLᵀ over the
+    # strictly lower encoder, 128 observations from a ground truth
+    enc = encs[True]
+    truth = SparseMultivariateNormal(
+        torch.zeros(n, device=dev),
+        torch.exp(0.2 * torch.randn(n, generator=gen)).to(dev),
+        precision_tril=enc(model_values(enc, gen, 0.05).to(dev)))
+    batch = truth.sample((MODEL_S,), generator=torch.Generator(
+        device=dev).manual_seed(163))
+    params = {"values": torch.zeros((len(enc.offsets),) + MODEL_VOLUME,
+                                    device=dev),
+              "log_diag": torch.zeros(n, device=dev),
+              "loc": torch.zeros(n, device=dev)}
+    for v in params.values():
+        v.requires_grad_(True)
+    opt = torch.optim.Adam(params.values(), lr=FIT_LR)
+    losses, walls = [], []
+    zero_counters()
+    for _ in range(FIT_STEPS):
+        torch.cuda.synchronize()
+        t_step = time.perf_counter()
+        opt.zero_grad()
+        d = SparseMultivariateNormal(params["loc"],
+                                     torch.exp(params["log_diag"]),
+                                     precision_tril=enc(params["values"]))
+        loss = -d.log_prob(batch).mean()
+        loss.backward()
+        opt.step()
+        losses.append(loss.item())
+        walls.append((time.perf_counter() - t_step) * 1e3)
+    fit_launches = read_counters("gmrf fit", ())
+    print(f"  gmrf fit: losses {losses}, step wall ms {walls}")
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+        raise AssertionError(f"gmrf fit: loss did not fall: {losses}")
+    fit = {"losses": losses, "step_wall_ms": walls,
+           "launches": {k: v for k, v in fit_launches.items() if v}}
+    print(json.dumps({"models": rec, "gmrf_fit": fit, "n": n,
+                      "nnz_strict": MODEL_NNZ, "samples": MODEL_S,
+                      "card": card}))
+    return rec
+
+
+def phase_only(phase) -> int:
+    """``--solve`` / ``--models``: build the kernels and run one phase
+    (3e or 3f) alone."""
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2457,7 +2704,7 @@ def solve_only() -> int:
     _build.libraries()
     print(f"kernels built in {info['seconds']:.1f} s")
     count_plain()
-    phase_solvers(dev, card)
+    phase(dev, card)
     return 0
 
 
@@ -2761,6 +3008,9 @@ def main() -> int:
     print(f"phase 3e: sparse_generic_solve / sparse_generic_lstsq over the "
           f"Krylov solvers ({time.perf_counter() - t0:.1f} s in)")
     phase_solvers(dev, card)
+    print(f"phase 3f: the sparse multivariate normals at the flagship's "
+          f"width ({time.perf_counter() - t0:.1f} s in)")
+    phase_models(dev, card)
 
     # ---- phase 4: timing ---------------------------------------------------
     print(f"phase 4: timing ({time.perf_counter() - t0:.1f} s in)")
@@ -3116,8 +3366,9 @@ if __name__ == "__main__":
     mode = {"--k1": "k1", "--k2": "k2", "--k6": "k6", "--k7": "k7",
             "--k8": "k8", "--k9": "k9", "--k10": "k10"}.get(
                 " ".join(sys.argv[1:]))
-    if sys.argv[1:] == ["--solve"]:
-        rc = solve_only()
+    if sys.argv[1:] in (["--solve"], ["--models"]):
+        rc = phase_only(phase_solvers if sys.argv[1] == "--solve"
+                        else phase_models)
     else:
         rc = compare(mode) if mode else main()
     print(f"chip_smoke: {time.perf_counter() - t0:.1f} s", file=sys.stderr)

@@ -1,6 +1,7 @@
 """PyTorch port on the card: the CUDA kernels against their plain
-versions at awkward shapes, the main path (the Krylov solvers and the
-implicit solves too) against the CPU, and the wrappers' refusals.
+versions at awkward shapes, the main path (the Krylov solvers, the
+implicit solves and the sparse multivariate normals too) against the
+CPU, and the wrappers' refusals.
 
 Every test needs an NVIDIA GPU and skips without one.  The file imports
 nothing of JAX, so the card's machine, which has no JAX, runs it without
@@ -34,11 +35,15 @@ from torchsparsegradutils_tpu_torch.kernels.dia import (sddmm_core,
                                                         spmm_core,
                                                         spmm_core_plain)
 from torchsparsegradutils_tpu_torch.kernels import dia_tri
+from torchsparsegradutils_tpu_torch.kernels import window_gather as wg
 from torchsparsegradutils_tpu_torch.kernels.dia_tri import (
     tri_dia_core, tri_dia_core_plain, tri_dia_inv)
 from torchsparsegradutils_tpu_torch.kernels.window_gather import (
     window_gather, window_gather_plain)
+from torchsparsegradutils_tpu_torch.models import (PairwiseEncoder,
+                                                   SparseMultivariateNormal)
 from torchsparsegradutils_tpu_torch.types import StaticArray
+from torchsparsegradutils_tpu_torch.utils import coo_to_csr
 from torchsparsegradutils_tpu_torch.utils.random_sparse import (
     hybrid_sparse, make_spd_sparse, make_spd_stencil, rand_sparse,
     rand_sparse_tri, stencil_sparse)
@@ -953,3 +958,108 @@ def test_lstsq_on_card_matches_cpu(dev, monkeypatch):
     monkeypatch.undo()
     for x, ref in zip(got, run("cpu")):
         torch.testing.assert_close(x.cpu(), ref, rtol=5e-2, atol=5e-3)
+
+
+# --------------------------------------------------------------------------
+# the sparse multivariate normals (K1, K2, K3, K9) and coo_to_csr (K3)
+# --------------------------------------------------------------------------
+
+# (covariance?, LDLᵀ?) of the four parameterisations
+MODEL_FORMS = {"cov_llt": (True, False), "cov_ldlt": (True, True),
+               "prec_llt": (False, False), "prec_ldlt": (False, True)}
+
+
+def _no_plain_models(monkeypatch):
+    """No plain version of K1, K2, K3, K6, K7, K8 or K9 may run."""
+    _no_plain(monkeypatch)
+    for mod, name in ((dia_tri, "tri_dia_core_plain"),
+                      (wg, "window_gather_plain")):
+        def plain(*a, _name=name, **k):
+            raise AssertionError(f"{_name} ran on the card")
+        monkeypatch.setattr(mod, name, plain)
+
+
+def _model_factor(ldlt):
+    """The flagship encoder's factor on a 12³ volume (n = 1,728): strictly
+    lower for LDLᵀ, with its diagonal stored (1 + 0.1 U(0, 1)) for LLᵀ;
+    off-diagonal values 0.05 N(0, 1)."""
+    enc = PairwiseEncoder(1.5, (1, 12, 12, 12), diag=not ldlt, upper=False,
+                          layout="coo")
+    g = torch.Generator().manual_seed(18)
+    vals = 0.05 * torch.randn((len(enc.offsets),) + enc.volume_shape,
+                              generator=g)
+    for k, off in enumerate(enc.offsets):
+        if not any(off):
+            vals[k] = 1.0 + 0.1 * torch.rand(enc.volume_shape, generator=g)
+    return enc(vals)
+
+
+@pytest.mark.parametrize("form", list(MODEL_FORMS))
+def test_distribution_on_card_matches_cpu(dev, monkeypatch, form):
+    """Samples (``_transform_eps`` on one ε) and ``log_prob``, forward
+    and backward, on the card against the CPU: the covariance samples
+    launch K1, the precision samples and the covariance ``log_prob``
+    K9, the gradients K2; no plain version runs."""
+    cov, ldlt = MODEL_FORMS[form]
+    L = _model_factor(ldlt)
+    n = L.shape[-1]
+    g = torch.Generator().manual_seed(19)
+    loc = torch.randn(n, generator=g)
+    D = torch.exp(0.2 * torch.randn(n, generator=g))
+    eps = torch.randn(8, n, generator=g)
+    value = loc + torch.randn(8, n, generator=g)
+
+    def run(device):
+        leaves = [t.to(device).requires_grad_(True)
+                  for t in (L.values, loc, D)][:3 if ldlt else 2]
+        kw = {"scale_tril" if cov else "precision_tril":
+              L.with_data(leaves[0])}
+        d = SparseMultivariateNormal(leaves[1], leaves[2] if ldlt else None,
+                                     **kw)
+        x = leaves[1] + d._transform_eps(eps.to(device))
+        lp = d.log_prob(value.to(device))
+        return (x, lp, *torch.autograd.grad((x ** 2).sum() + lp.sum(),
+                                            leaves))
+
+    _no_plain_models(monkeypatch)
+    before = {f: f.launches for f in (spmm_core, sddmm_core, tri_dia_core)}
+    got = run(dev)
+    torch.cuda.synchronize()
+    launched = {f.__name__: f.launches - b for f, b in before.items()}
+    assert launched["sddmm_core"] > 0
+    assert launched["spmm_core" if cov else "tri_dia_core"] > 0
+    if cov:
+        assert launched["tri_dia_core"] > 0        # log_prob's solve
+    s = SparseMultivariateNormal(
+        loc.to(dev), D.to(dev) if ldlt else None,
+        **{"scale_tril" if cov else "precision_tril": L.with_data(
+            L.values.to(dev))}).rsample(
+        (4,), generator=torch.Generator(device=dev).manual_seed(0))
+    assert s.shape == (4, n) and torch.isfinite(s).all()
+    monkeypatch.undo()
+    for x, ref in zip(got, run("cpu")):
+        close(x.detach(), ref.detach(), torch.float32)
+
+
+def test_coo_to_csr_on_card_permutes_through_the_gather(dev, monkeypatch):
+    """coo_to_csr moves the values through K3, forward and backward (the
+    gather by the inverse permutation), bitwise as on the CPU."""
+    A = rand_sparse((2000, 1500), 20_000, device="cpu")
+    perm = np.random.default_rng(0).permutation(A.nnz)
+    U = SparseCOO(A.rows()[perm], A.cols()[perm], A.values[perm], A.shape)
+    w = torch.randn(A.nnz, generator=torch.Generator().manual_seed(20))
+
+    def run(device):
+        v = U.values.to(device).requires_grad_(True)
+        C = coo_to_csr(U.with_data(v))
+        (gv,) = torch.autograd.grad((C.values * w.to(device)).sum(), v)
+        return C.values, gv
+
+    _no_plain_models(monkeypatch)
+    before = window_gather.launches
+    got = run(dev)
+    torch.cuda.synchronize()
+    assert window_gather.launches == before + 2
+    monkeypatch.undo()
+    for x, ref in zip(got, run("cpu")):
+        assert torch.equal(x.detach().cpu(), ref.detach())

@@ -12,6 +12,8 @@ at the JAX tests' own tolerances (``tests/test_solve.py``,
 """
 
 import functools
+import re
+import warnings
 
 import jax
 import jax.numpy as jnp
@@ -26,8 +28,10 @@ from torchsparsegradutils_tpu_torch import (SparseCOO, sparse_generic_lstsq,
 from torchsparsegradutils_tpu_torch import solvers as ps
 from torchsparsegradutils_tpu_torch.utils.random_sparse import (
     make_spd_sparse, rand_sparse)
-from torch_solver_cases import (N, SQUARE, TALL, close, rhs, spd, square,
-                                tall, to_port)
+from torchsparsegradutils_tpu_torch.ops import spmm as pspmm
+from torch_solver_cases import (N, ROUTES, SQUARE, TALL, close,
+                                jax_mismatch_message, rhs, route_case, spd,
+                                square, tall, to_port)
 
 M, NL = TALL
 CG = dict(max_iter=400, rtol=1e-10, mean_residual=False)
@@ -256,3 +260,42 @@ def test_dtype_and_nonconvergence_warnings():
                                  settings=ps.MINRESSettings(max_iter=2,
                                                             rtol=1e-12))
     assert torch.isfinite(x).all()
+
+
+# --------------------------------------------------------------------------
+# a right-hand side of width 0, and a float64 A with a float32 B
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("op", ["sparse_generic_solve",
+                                "sparse_generic_lstsq"])
+def test_width_zero_rhs_matches_jax(enable_x64, op):
+    Aj = spd()
+    ref = getattr(tj, op)(Aj, jnp.zeros((N, 0)))
+    b = torch.zeros((N, 0), dtype=torch.float64, requires_grad=True)
+    got = {"sparse_generic_solve": sparse_generic_solve,
+           "sparse_generic_lstsq": sparse_generic_lstsq}[op](to_port(Aj), b)
+    assert tuple(got.shape) == ref.shape == (N, 0)
+    assert str(got.dtype).removeprefix("torch.") == str(ref.dtype)
+    (gb,) = torch.autograd.grad(got.sum(), b)
+    assert gb.shape == (N, 0)
+
+
+@pytest.mark.parametrize("route", ROUTES)
+@pytest.mark.parametrize("op", ["sparse_generic_solve",
+                                "sparse_generic_lstsq"])
+def test_dtype_mismatch_raises_jax_message(enable_x64, monkeypatch, route,
+                                           op):
+    if route == "chunk":
+        chunk = pspmm._chunk_plan
+        monkeypatch.setattr(pspmm, "_chunk_plan",
+                            lambda A, backend: chunk(A, "pallas"))
+    A = to_port(route_case(route))
+    with warnings.catch_warnings():     # JAX's "different dtypes" warning
+        warnings.simplefilter("ignore")
+        msg = jax_mismatch_message(getattr(tj, op))
+    fn = {"sparse_generic_solve": sparse_generic_solve,
+          "sparse_generic_lstsq": sparse_generic_lstsq}[op]
+    with pytest.raises(ValueError, match=f"^{re.escape(msg)}$"):
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            fn(A, torch.ones((A.shape[0], 2), dtype=torch.float32))

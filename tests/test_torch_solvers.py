@@ -18,6 +18,7 @@ the way the other port tests do (``ops.spmm._chunk_plan`` read as
 
 import functools
 import math
+import re
 
 import jax
 import jax.numpy as jnp
@@ -34,7 +35,8 @@ from torchsparsegradutils_tpu_torch.ops import spmm as pspmm
 from torchsparsegradutils_tpu_torch.solvers import common
 from torchsparsegradutils_tpu_torch.utils.random_sparse import (
     make_spd_sparse, make_spd_stencil, rand_sparse)
-from torch_solver_cases import (KEY, N, SQUARE, TALL, close, rhs, spd,
+from torch_solver_cases import (KEY, N, ROUTES, SQUARE, TALL, close,
+                                jax_mismatch_message, rhs, route_case, spd,
                                 square, stencil, t, tall, to_port)
 
 F64 = 1e-9
@@ -477,3 +479,40 @@ def test_make_spd_sparse_rules(enable_x64, layout):
         make_spd_sparse(10, 9, device="cpu")
     with pytest.raises(ValueError, match="must be even"):
         make_spd_sparse(10, 13, device="cpu")
+
+
+# --------------------------------------------------------------------------
+# a right-hand side of width 0, and a float64 A with a float32 B
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("solver", ["linear_cg", "minres", "bicgstab",
+                                    "lsmr"])
+def test_width_zero_rhs_matches_jax(enable_x64, solver):
+    Aj = spd()
+    ref = getattr(js, solver)(Aj, jnp.zeros((N, 0)))
+    got = getattr(ps, solver)(to_port(Aj), torch.zeros((N, 0),
+                                                      dtype=torch.float64))
+    if solver == "lsmr":
+        (got, itn), (ref, ritn) = got, ref
+        assert int(itn) == int(ritn)
+    assert tuple(got.shape) == ref.shape == (N, 0)
+    assert str(got.dtype).removeprefix("torch.") == str(ref.dtype)
+
+
+@pytest.mark.parametrize("route", ROUTES)
+@pytest.mark.parametrize("solver", ["linear_cg", "minres", "bicgstab",
+                                    "lsmr"])
+def test_dtype_mismatch_raises_jax_message(enable_x64, monkeypatch, route,
+                                           solver):
+    if route == "chunk":
+        chunk = pspmm._chunk_plan
+        monkeypatch.setattr(pspmm, "_chunk_plan",
+                            lambda A, backend: chunk(A, "pallas"))
+    A = to_port(route_case(route))
+    msg = jax_mismatch_message(getattr(js, solver))
+    assert msg == "sparse_mm: dtype mismatch, A is float64 and B is float32"
+    steps = common.while_loop.steps
+    with pytest.raises(ValueError, match=f"^{re.escape(msg)}$"):
+        getattr(ps, solver)(A, torch.ones((A.shape[0], 2),
+                                          dtype=torch.float32))
+    assert common.while_loop.steps == steps     # raised before the loop

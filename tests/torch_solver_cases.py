@@ -71,3 +71,27 @@ def close(got, ref, rtol):
     assert got.shape == ref.shape, (got.shape, ref.shape)
     np.testing.assert_allclose(got, ref, rtol=rtol,
                                atol=rtol * max(np.abs(ref).max(), 1e-300))
+
+
+# the routes of a solve's matvec: the generic branch, the chunk engine
+# (with ``ops.spmm._chunk_plan`` read as ``backend="pallas"``) and DIA
+ROUTES = ("generic", "chunk", "dia")
+
+
+def route_case(route):
+    """The JAX matrix whose port copy takes ``route`` on the CPU."""
+    return {"generic": lambda: spd("coo"), "chunk": lambda: spd("csr"),
+            "dia": stencil}[route]()
+
+
+@functools.lru_cache(maxsize=None)
+def jax_mismatch_message(solver):
+    """The ValueError message of JAX ``solver`` on a float64 A and a
+    float32 right-hand side (its ``sparse_mm`` refusal; JAX's DIA route
+    fails later, in its loop, so the generic route gives the message)."""
+    Aj = spd("coo")
+    try:
+        solver(Aj, jnp.ones((N, 2), jnp.float32))
+    except ValueError as e:
+        return str(e)
+    raise AssertionError("JAX accepted a float64 A with a float32 B")

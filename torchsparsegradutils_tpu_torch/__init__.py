@@ -9,11 +9,12 @@ dense algorithms) with the same kind of backward;
 ``sparse_logsumexp`` / ``sparse_bidir_logsumexp`` (DIA grid, row-ELL
 grid and chunk routes); and ``sparse_generic_solve`` /
 ``sparse_generic_lstsq`` over the Krylov solvers of ``solvers`` (CG,
-BiCGSTAB, MINRES, LSMR), with implicit gradients.  The subpackages
-``parallel`` (row-sharded,
+BiCGSTAB, MINRES, LSMR), with implicit gradients; ``segment_mm`` /
+``gather_mm``.  The subpackages ``parallel`` (row-sharded,
 chunk-sharded and halo-exchange SpMM and the dp × tp flagship train step
-on ``torch.distributed``) and ``models`` (``PairwiseEncoder``) build on
-them.  The SpMM, SDDMM, SpMV, value relayout, banded triangular solve,
+on ``torch.distributed``), ``models`` (``PairwiseEncoder`` and the
+sparse multivariate normals) and ``utils`` (structure helpers,
+generators, the samples' statistical checks) build on them.  The SpMM, SDDMM, SpMV, value relayout, banded triangular solve,
 row LSE and its backward, the fused chunk backward and the row-slab SpMM
 run as hand-written CUDA kernels (``csrc/``) on the card and as their
 plain PyTorch versions on the CPU.  The JAX package beside it is
@@ -24,6 +25,7 @@ it.
 from . import solvers
 from .convert import from_arrays, params_from_arrays, to_arrays
 from .kernels.dia import dia_coverage
+from .ops.indexed_matmul import gather_mm, segment_mm
 from .ops.logsumexp import sparse_bidir_logsumexp, sparse_logsumexp
 from .ops.lstsq import sparse_generic_lstsq
 from .ops.solve import sparse_generic_solve
@@ -35,6 +37,6 @@ from .utils.random_sparse import make_spd_sparse, make_spd_stencil
 __all__ = ["SparseCOO", "SparseCSR", "SparseCSC", "sparse_mm", "sddmm",
            "sparse_triangular_solve", "sparse_logsumexp",
            "sparse_bidir_logsumexp", "sparse_generic_solve",
-           "sparse_generic_lstsq", "solvers", "make_spd_sparse",
+           "sparse_generic_lstsq", "segment_mm", "gather_mm", "solvers", "make_spd_sparse",
            "make_spd_stencil", "dia_coverage", "from_arrays", "to_arrays",
            "params_from_arrays"]

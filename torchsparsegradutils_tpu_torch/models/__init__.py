@@ -1,9 +1,10 @@
-"""Models of the PyTorch port: the pairwise neighbourhood encoders.
+"""Models of the PyTorch port: the pairwise neighbourhood encoders and
+the sparse-factor multivariate normals (port of
+``torchsparsegradutils_tpu/models/``)."""
 
-Port of ``torchsparsegradutils_tpu/models/``; its
-``SparseMultivariateNormal`` is still to port (``ROADMAP.md``).
-"""
-
+from .distributions import (SparseMultivariateNormal,
+                            SparseMultivariateNormalNative)
 from .encoders import PairwiseEncoder, calc_pairwise_coo_indices_nd
 
-__all__ = ["PairwiseEncoder", "calc_pairwise_coo_indices_nd"]
+__all__ = ["SparseMultivariateNormal", "SparseMultivariateNormalNative",
+           "PairwiseEncoder", "calc_pairwise_coo_indices_nd"]

@@ -49,7 +49,7 @@ def bicgstab(A, rhs, *, settings: BICGSTABSettings = BICGSTABSettings(),
     ``sparse_generic_solve``.
     """
     mv = as_matvec(A)
-    b, was_vec = ensure_matrix(rhs)
+    b, was_vec = ensure_matrix(rhs, A)
     n, k = b.shape
     dtype, dev = b.dtype, b.device
     M = preconditioner if preconditioner is not None else (lambda v: v)

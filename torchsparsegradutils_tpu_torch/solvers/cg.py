@@ -69,7 +69,7 @@ def linear_cg(A, rhs, *, settings: LinearCGSettings = LinearCGSettings(),
       non-convergence ``UserWarning`` fires.
     """
     mv = as_matvec(A)
-    b, was_vec = ensure_matrix(rhs)
+    b, was_vec = ensure_matrix(rhs, A)
     n, k = b.shape
     dtype, dev = b.dtype, b.device
     if n_tridiag > k:

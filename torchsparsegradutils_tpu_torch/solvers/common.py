@@ -69,10 +69,12 @@ host_read.reads = 0
 def maybe_warn_not_converged(info: SolveInfo, name: str) -> None:
     """Warn when a column did not converge (the JAX package's eager
     warning), with one host read."""
+    res = info.residual.reshape(-1).to(torch.float64)
     packed = torch.stack([
         info.converged.all().to(torch.float64),
         info.iterations.to(torch.float64),
-        info.residual.max().to(torch.float64)])
+        # a 0 beside the norms: a width-0 solve has none to take a max of
+        torch.cat([res, res.new_zeros(1)]).max()])
     ok, iters, worst = host_read(packed)
     if ok:
         return
@@ -192,9 +194,19 @@ def as_rmatvec(A) -> Callable:
     return lambda x: A_h @ x
 
 
-def ensure_matrix(b):
-    """(n,) -> (n, 1); returns (b2d, was_vector)."""
+def ensure_matrix(b, A=None):
+    """(n,) -> (n, 1); returns (b2d, was_vector).
+
+    With a sparse ``A``, refuses a ``b`` of another dtype as the JAX
+    package's ``sparse_mm`` does, once a solve and on every route (the
+    DIA and chunk matvecs do not check).
+    """
     b = b if isinstance(b, torch.Tensor) else torch.as_tensor(b)
+    if is_sparse(A) and A.dtype != b.dtype:
+        raise ValueError(
+            f"sparse_mm: dtype mismatch, A is "
+            f"{str(A.dtype).removeprefix('torch.')} and B is "
+            f"{str(b.dtype).removeprefix('torch.')}")
     if b.ndim == 1:
         return b[:, None], True
     if b.ndim == 2:

@@ -61,7 +61,7 @@ def lsmr(A, b, *, rmatvec: Optional[Callable] = None,
     """
     mv = as_matvec(A)
     rmv = as_rmatvec(A) if rmatvec is None else rmatvec
-    b2, was_vec = ensure_matrix(b)
+    b2, was_vec = ensure_matrix(b, A)
     n, k = b2.shape
     dtype, dev = b2.dtype, b2.device
     # complex systems: vectors stay complex, every Golub-Kahan scalar

@@ -61,7 +61,7 @@ def minres(A, rhs, *, shifts=None,
       non-convergence ``UserWarning`` fires.
     """
     mv = as_matvec(A)
-    b, was_vec = ensure_matrix(rhs)
+    b, was_vec = ensure_matrix(rhs, A)
     n, k = b.shape
     dtype, dev = b.dtype, b.device
     fi = torch.finfo(dtype)
