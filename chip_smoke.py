@@ -67,7 +67,9 @@ last line:
    path on the card, with per-route launch checks (the chunk LSE kernels
    launch on lse-skewed only); and *random-fused*, ``sparse_mm`` on the
    random pattern at p = 128 with ``SPMM_BWD = "fused"`` (and
-   ``grad_precision="fast"``), against the split backward (the LSE and
+   ``grad_precision="fast"``), against the split backward, one launch
+   of K12 a backward and no plain version, with each backward's peak
+   memory (the LSE and
    fused kernels also against their plain versions at the cfd2 shapes
    and small awkward ones in phase 2);
    then (3d) ``parallel/`` on a one-rank NCCL group (a ``FileStore`` in
@@ -124,7 +126,7 @@ last line:
    beside ``torch.sparse.mm``, with a probe of B's read rows folded into
    15.8 MB), K7 at p = 128, 64, 32, 16, 8, 3, 2 and 1 and on the residual
    (``k7_times``, beside ``torch.sparse.sampled_addmm``, with the same
-   probe, K12a's device time and the slab probe), K9 at p = 128 and 2
+   probe, K12's device time and the slab probe), K9 at p = 128 and 2
    and for the backward's transposed solve (``k9_times``: event and
    profiled device time, the block inverses alone, bound, plain version,
    ``torch.triangular_solve``), K8 for A x and Aᵀ g on the random
@@ -133,10 +135,12 @@ last line:
    ``torch.mv`` and ``torch.sparse.mm``), and
    times each kernel, its plain version and one PyTorch library call that
    computes the same function, with CUDA events, and prints them as a
-   ``{"kernels": [...]}`` line (thirteen rows, K13's from phase 3d, K1's,
+   ``{"kernels": [...]}`` line (twelve rows, K13's from phase 3d, K1's,
    K2's, K6's, K7's, K8's and K9's with ``per_launch``, K3's and K8's
-   with their and the library call's profiled device time, K12a's and
-   K9's block inverses' with their own);
+   with their and the library call's profiled device time, K12's and
+   K9's block inverses' with their own; K12's with gradA's and gradB's
+   library calls, ``torch.sparse.sampled_addmm`` and ``torch.sparse.mm``
+   on Aᵀ, each alone and both in turn, as no one call gives both);
 5. prints ``{"ok": true, "device": {...}}`` as the last line.
 
 Without a CUDA device it exits 1 and prints no result.
@@ -151,8 +155,9 @@ steps with tri-stencil p = 2 fwd+bwd as one ``k2_compare`` line;
 and the steps that launch K6 or K13 (random p=128, hybrid85,
 sharded-chunk at world size 1, public ``sddmm`` on the random pattern)
 as one ``k6_compare`` line; ``--k7`` prints K7's ``k7_times`` and the
-same steps with random p=1, tri-random p=2 and random-fused (whose K12a
-computes K7's gradA) as one ``k7_compare`` line; ``--k8`` prints K8's
+same steps with random p=1, tri-random p=2 and random-fused (whose K12
+computes K7's gradA; random and random-fused with one step's peak
+memory too) as one ``k7_compare`` line; ``--k8`` prints K8's
 ``k8_times`` (with the gather probe and K8 at each fixed lane group)
 and the random p = 1 fwd+bwd step that launches it, with, for control,
 stencil and random ``sparse_mm`` fwd+bwd at p = 128, which do not, as
@@ -202,15 +207,16 @@ CHUNK_KERNELS = ("chunk_spmm", "chunk_sddmm", "gather")
 TRI_KERNELS = ("tri_dia", "tri_dia_inv", "dia_sddmm", "gather")
 TRI_RANDOM_KERNELS = ("chunk_sddmm", "gather")
 LSE_CHUNK = ("lse_rows", "lse_rows_bwd")
-FUSED = ("chunk_bwd_pass1", "chunk_bwd_pass2")
+FUSED = ("chunk_bwd_cols", "gather")  # K12 between two K3 gathers
 GRAD_TOL = (1e-4, 1e-6)  # (rtol, atol): LSE gradients, the JAX tests' own
-FAST_REL = 1e-2  # |gradB - split| / |split| with V stored in bfloat16
+FAST_REL = 1e-2  # |gradB - split| / |split|, K12's products in bfloat16
 ROUTES = []             # triangular-solve routes taken, in order
 PLAIN = {"dia_spmm_plain": 0,    # K1's, K2's, K3's, K6's, K7's, K8's,
-         "dia_sddmm_plain": 0,   # K9's and K13's plain versions called by
-         "chunk_spmm_plain": 0,  # their wrappers
+         "dia_sddmm_plain": 0,   # K9's, K12's and K13's plain versions
+         "chunk_spmm_plain": 0,  # called by their wrappers
          "chunk_spmm_slab_plain": 0, "chunk_sddmm_plain": 0,
-         "chunk_spmv_plain": 0, "tri_dia_plain": 0, "gather_plain": 0}
+         "chunk_spmv_plain": 0, "tri_dia_plain": 0, "gather_plain": 0,
+         "chunk_bwd_cols_plain": 0}
 K1_PS = (128, 16, 1)    # K1's widths on the main path: stencil, p=16, matvec
 K2_PS = (128, 16, 2, 1)  # K2's: stencil, p=16, tri-stencil p=2, matvec
 K6_PS = (128, 64, 32, 16, 3)  # K6's widths timed on the random pattern
@@ -325,8 +331,8 @@ def counters():
     from torchsparsegradutils_tpu_torch.kernels.chunk_lse import (
         lse_rows, lse_rows_bwd)
     from torchsparsegradutils_tpu_torch.kernels.chunk_spmm import (
-        chunk_bwd_pass1, chunk_bwd_pass2, chunk_sddmm, chunk_spmm,
-        chunk_spmm_slab, chunk_spmv)
+        chunk_bwd_cols, chunk_sddmm, chunk_spmm, chunk_spmm_slab,
+        chunk_spmv)
     from torchsparsegradutils_tpu_torch.kernels.dia import (sddmm_core,
                                                             spmm_core)
     from torchsparsegradutils_tpu_torch.kernels.dia_tri import (
@@ -338,8 +344,7 @@ def counters():
             "chunk_sddmm": chunk_sddmm, "chunk_spmv": chunk_spmv,
             "tri_dia": tri_dia_core, "tri_dia_inv": tri_dia_inv,
             "lse_rows": lse_rows,
-            "lse_rows_bwd": lse_rows_bwd, "chunk_bwd_pass1": chunk_bwd_pass1,
-            "chunk_bwd_pass2": chunk_bwd_pass2,
+            "lse_rows_bwd": lse_rows_bwd, "chunk_bwd_cols": chunk_bwd_cols,
             "chunk_spmm_slab": chunk_spmm_slab}
 
 
@@ -360,7 +365,7 @@ def track_routes():
 
 def count_plain():
     """Count calls of K1's, K2's, K3's, K6's, K7's, K8's, K9's (the solve's
-    and the block inverses') and K13's plain versions made through their
+    and the block inverses'), K12's and K13's plain versions made through their
     kernels modules (their wrappers' CPU paths) in ``PLAIN``: a step on
     the card must make none."""
     from torchsparsegradutils_tpu_torch.kernels import chunk_spmm, dia, dia_tri
@@ -377,7 +382,9 @@ def count_plain():
                            (chunk_spmm, "chunk_sddmm_plain",
                             "chunk_sddmm_plain"),
                            (chunk_spmm, "chunk_spmv_plain",
-                            "chunk_spmv_plain")):
+                            "chunk_spmv_plain"),
+                           (chunk_spmm, "chunk_bwd_cols_plain",
+                            "chunk_bwd_cols_plain")):
         plain = getattr(mod, name)
 
         def counted(*a, _plain=plain, _key=key, **k):
@@ -414,6 +421,8 @@ def read_counters(label, expect, forbid=()):
         forbid += ("chunk_sddmm_plain",)
     if "chunk_spmv" in expect:
         forbid += ("chunk_spmv_plain",)
+    if "chunk_bwd_cols" in expect:
+        forbid += ("chunk_bwd_cols_plain",)
     wrong = [k for k in forbid if launches[k] != 0]
     if wrong:
         raise AssertionError(f"{label}: kernels {wrong} launched off their "
@@ -972,42 +981,32 @@ def check_lse_kernels(label, plan, vals, width, dt_name, gen):
 
 
 def check_fused_kernels(label, plan, vals, B, G, dt_name):
-    """K12a and K12b against their plain versions, V in the working dtype
-    and in bfloat16, each launched twice and bitwise equal; gradA equal
-    to K7's; returns the largest errors."""
+    """K12 against its plain version, exact and with its products rounded
+    to bfloat16, each launched twice and bitwise equal; gradA bitwise
+    K7's; returns the largest error."""
     import torch
     from torchsparsegradutils_tpu_torch.kernels.chunk_spmm import (
-        chunk_bwd_pass1, chunk_bwd_pass1_plain, chunk_bwd_pass2,
-        chunk_bwd_pass2_plain, chunk_sddmm)
+        chunk_bwd_cols, chunk_bwd_cols_plain, chunk_sddmm)
     d, dt = plan.maps(B.device), plan.T.maps(B.device)
-    err = {}
-    for v_dtype in dict.fromkeys((B.dtype, torch.bfloat16)):
-        vn = str(v_dtype).removeprefix("torch.")
-        args = (d["indptr"], d["cols"], vals, B, G, v_dtype)
-        (dd, V), (dd2, V2) = chunk_bwd_pass1(*args), chunk_bwd_pass1(*args)
-        if not (torch.equal(dd, dd2) and torch.equal(V, V2)):
-            raise AssertionError(f"{label} chunk_bwd_pass1 [{dt_name}]: two "
-                                 "launches differ")
-        pdd, pV = chunk_bwd_pass1_plain(*args)
+    args = (dt["indptr"], dt["cols"], dt["perm"], dt["inv"], vals, B, G)
+    err = 0.0
+    for fast in (False, True):
+        (dd, dB), (dd2, dB2) = (chunk_bwd_cols(*args, fast)
+                                for _ in range(2))
+        if not (torch.equal(dd, dd2) and torch.equal(dB, dB2)):
+            raise AssertionError(f"{label} chunk_bwd_cols [{dt_name}] fast="
+                                 f"{fast}: two launches differ")
         if not torch.equal(dd, chunk_sddmm(d["indptr"], d["cols"], G, B)):
-            raise AssertionError(f"{label} chunk_bwd_pass1 [{dt_name}]: dd "
-                                 "is not K7's")
-        e = max(close(f"{label} chunk_bwd_pass1 dd, V {vn} (repeats "
-                      "bitwise)", dd, pdd, dt_name),
-                close(f"{label} chunk_bwd_pass1 V {vn}", V, pV, dt_name))
-        del pV
-        err["chunk_bwd_pass1"] = max(err.get("chunk_bwd_pass1", 0.0), e)
-        dB, dB2 = (chunk_bwd_pass2(dt["indptr"], dt["perm"], V, B.dtype)
-                   for _ in range(2))
-        if not torch.equal(dB, dB2):
-            raise AssertionError(f"{label} chunk_bwd_pass2 [{dt_name}]: two "
-                                 "launches differ")
-        e = close(f"{label} chunk_bwd_pass2 V {vn} (repeats bitwise)", dB,
-                  chunk_bwd_pass2_plain(dt["indptr"], dt["perm"], V,
-                                        B.dtype), dt_name)
-        err["chunk_bwd_pass2"] = max(err.get("chunk_bwd_pass2", 0.0), e)
-        del V, V2
-    return err
+            raise AssertionError(f"{label} chunk_bwd_cols [{dt_name}] fast="
+                                 f"{fast}: dd is not K7's")
+        pdd, pdB = chunk_bwd_cols_plain(*args, fast)
+        err = max(err,
+                  close(f"{label} chunk_bwd_cols dd fast={fast} (repeats "
+                        "bitwise, K7's bitwise)", dd, pdd, dt_name),
+                  close(f"{label} chunk_bwd_cols dB fast={fast} (repeats "
+                        "bitwise)", dB, pdB, dt_name))
+        del pdd, pdB
+    return {"chunk_bwd_cols": err}
 
 
 def lse_fwd_bwd(A, backend):
@@ -1315,8 +1314,9 @@ def k7_times(R, cplan, H, B, G, dev):
     plain version and ``torch.sparse.sampled_addmm`` on the same CSR; as a
     probe of the L2, p = 128 with every column folded into B's first
     N / 4 rows (15.8 MB of B read, which the L2 holds; no plain or
-    library time, as rows may repeat a column); K12a's device time at
-    p = 128 (its gradA is K7's, bitwise); and, where the checkout picks
+    library time, as rows may repeat a column); the fused backward's
+    device time at p = 128 (K12a's pass 1 where the checkout has it, else
+    K12, whose gradA is K7's, bitwise); and, where the checkout picks
     K7's column slab on the host (``sddmm_passes``), the profiled device
     time at p = 128 on the random pattern and on the residual with slabs
     of one, two and four 128-byte lines (``slab_probe``)."""
@@ -1357,9 +1357,15 @@ def k7_times(R, cplan, H, B, G, dev):
             row["library_ms"] = time_ms(
                 lambda: torch.sparse.sampled_addmm(csr, X, Y.t(), beta=0.0))
         out[label] = row
-    out["k12a_p128_device_ms"] = device_ms(
-        lambda: cs.chunk_bwd_pass1(d["indptr"], d["cols"], R.values, B, G,
-                                   torch.float32), "bwd_rows")
+    if hasattr(cs, "chunk_bwd_cols"):
+        dt = cplan.T.maps(dev)
+        out["k12_p128_device_ms"] = device_ms(
+            lambda: cs.chunk_bwd_cols(dt["indptr"], dt["cols"], dt["perm"],
+                                      dt["inv"], R.values, B, G), "bwd_cols")
+    else:
+        out["k12a_p128_device_ms"] = device_ms(
+            lambda: cs.chunk_bwd_pass1(d["indptr"], d["cols"], R.values, B,
+                                       G, torch.float32), "bwd_rows")
     if hasattr(cs, "sddmm_passes"):
         saved = cs.SLAB_BYTES, cs.SHORT_SLAB_BYTES
         probe = {}
@@ -1772,7 +1778,7 @@ def compare(which) -> int:
     fwd+bwd (K2 also tri-stencil p = 2); for K6 and K7 random p=128,
     hybrid85, sharded-chunk at world size 1 and public ``sddmm`` on the
     random pattern (K7 also random p=1, tri-random p=2 and random-fused,
-    whose K12a computes K7's gradA); for K8 :func:`k8_steps` (with each
+    whose K12 computes K7's gradA); for K8 :func:`k8_steps` (with each
     step's K8 launches), for K9 :func:`k9_steps`, for K10
     :func:`k10_steps` (with each step's K10 and K11 launches).  Run in
     turns from two checkouts to compare them on one card.  Prints one
@@ -1909,6 +1915,15 @@ def compare(which) -> int:
                     lse_rows.launches - before[0]
                 steps[f"{label}_k11_launches"] = \
                     lse_rows_bwd.launches - before[1]
+            if which == "k7" and label in ("random", "random_fused"):
+                # the split and fused backwards' memory: one step's peak
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                base = torch.cuda.memory_allocated()
+                fn()
+                torch.cuda.synchronize()
+                steps[f"{name}_peak_extra_mib"] = (
+                    torch.cuda.max_memory_allocated() - base) / 2**20
             steps[f"{name}_ms"] = time_ms(
                 fn, reps=10 if label.startswith(("tri", "flagship")) else 50,
                 warmup=1 if label.startswith("tri_random") else 3)
@@ -2720,8 +2735,7 @@ def main() -> int:
         lse_rows, lse_rows_bwd, lse_rows_bwd_plain, lse_rows_plain,
         plan_packs)
     from torchsparsegradutils_tpu_torch.kernels.chunk_spmm import (
-        build_chunk_plan, chunk_bwd_pass1, chunk_bwd_pass1_plain,
-        chunk_bwd_pass2, chunk_bwd_pass2_plain, chunk_sddmm,
+        build_chunk_plan, chunk_bwd_cols, chunk_bwd_cols_plain, chunk_sddmm,
         chunk_sddmm_plain, chunk_spmm, chunk_spmm_plain, chunk_spmv,
         chunk_spmv_plain, SPMV_PACK)
     from torchsparsegradutils_tpu_torch.kernels.dia import (
@@ -2973,18 +2987,31 @@ def main() -> int:
     drive_lse("lse-stencil", A, ("gather",), LSE_CHUNK)
     drive_lse("lse-random", R, ("gather",), LSE_CHUNK)
     launches_lse = drive_lse("lse-skewed", S, LSE_CHUNK + ("gather",), ())
-    split = fwd_bwd(R, B, G, "auto")
+    def peak_extra(fn):
+        """fn()'s result and the MiB it allocated above what was held
+        before, at its peak."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        res = fn()
+        torch.cuda.synchronize()
+        return res, (torch.cuda.max_memory_allocated() - base) / 2**20
+
+    split, mem_split = peak_extra(lambda: fwd_bwd(R, B, G, "auto"))
+    peak_mib = {"split": mem_split}
     dia.SPMM_BWD = "fused"
     try:
         for gp in ("exact", "fast"):
             zero_counters()
-            got = fwd_bwd(R, B, G, "auto", grad_precision=gp)
+            got, peak_mib[f"fused_{gp}"] = peak_extra(
+                lambda: fwd_bwd(R, B, G, "auto", grad_precision=gp))
             lf = read_counters(f"random-fused p=128 {gp}", FUSED,
                                ("chunk_sddmm", "chunk_sddmm_plain"))
-            if lf["chunk_spmm"] != 1:
-                raise AssertionError("random-fused: chunk_spmm launched "
-                                     f"{lf['chunk_spmm']} times, not once "
-                                     "(the forward)")
+            if lf["chunk_spmm"] != 1 or lf["chunk_bwd_cols"] != 1:
+                raise AssertionError(
+                    f"random-fused: chunk_spmm launched {lf['chunk_spmm']} "
+                    f"times and chunk_bwd_cols {lf['chunk_bwd_cols']}, not "
+                    "once each (the forward, the backward)")
             if gp == "exact":
                 launches_f = lf
             for name_, g_, r_ in zip(("out", "gradA", "gradB"), got, split):
@@ -3001,6 +3028,8 @@ def main() -> int:
     finally:
         dia.SPMM_BWD = "split"
     del split, got
+    print(json.dumps({"random_fused_fwd_bwd_peak_extra_mib": peak_mib,
+                      "card": card}))
 
     print(f"phase 3d: parallel/ on a one-rank NCCL group "
           f"({time.perf_counter() - t0:.1f} s in)")
@@ -3246,7 +3275,7 @@ def main() -> int:
                      tnblk * tnb * (tnb + 1) // 2
                      * (2 * (len(in_block) - 1) + 1)))]
     # K10 and K11 on lse-skewed (include_zeros, as sparse_logsumexp's
-    # default), K12a and K12b on the random pattern at p = 128
+    # default), K12 on the random pattern at p = 128
     sm = splan.maps(dev)
     spk = plan_packs(splan, dev)
     nnz_s = S.nnz
@@ -3255,8 +3284,8 @@ def main() -> int:
     coo_s = torch.sparse_coo_tensor(torch.stack([S.rows_t(), S.cols_t()]),
                                     S.values, (N, N)).coalesce()
     ctm = cplan.T.maps(dev)
-    V = chunk_bwd_pass1(cm["indptr"], cm["cols"], R.values, B, G,
-                        torch.float32)[1]
+    k12_args = (ctm["indptr"], ctm["cols"], ctm["perm"], ctm["inv"],
+                R.values, B, G)
     csr_rt = torch.sparse_csr_tensor(ctm["indptr"], ctm["cols"],
                                      R.values[ctm["perm"]], (m, n))
     lse_src = "torchsparsegradutils_tpu_torch/csrc/chunk_lse.cu"
@@ -3274,24 +3303,15 @@ def main() -> int:
          lambda: lse_rows_bwd_plain(sm["indptr"], S.values, out_s, g_s),
          None, bound(2 * nnz_s * es + (n + 1) * 8 + 2 * n * es,
                      2 * nnz_s)),
-        ("chunk_bwd_pass1", fused_src, "torchsparsegradutils_tpu/kernels/"
-         "chunk_spmm.py:429 (K12a chunk_spmm_bwd_fused pass 1)", launches_f,
-         lambda: chunk_bwd_pass1(cm["indptr"], cm["cols"], R.values, B, G,
-                                 torch.float32),
-         lambda: chunk_bwd_pass1_plain(cm["indptr"], cm["cols"], R.values,
-                                       B, G, torch.float32),
-         lambda: torch.sparse.sampled_addmm(csr_r, G, B.t(), beta=0.0),
-         bound((urows + ucols) * P * es + idx_bytes + 2 * nnz_r * es
-               + nnz_r * P * es, 3 * nnz_r * P)),
-        ("chunk_bwd_pass2", fused_src, "torchsparsegradutils_tpu/kernels/"
-         "chunk_spmm.py:462 (K12b chunk_spmm_bwd_fused pass 2)", launches_f,
-         lambda: chunk_bwd_pass2(ctm["indptr"], ctm["perm"], V,
-                                 torch.float32),
-         lambda: chunk_bwd_pass2_plain(ctm["indptr"], ctm["perm"], V,
-                                       torch.float32),
-         lambda: torch.sparse.mm(csr_rt, G),
-         bound(nnz_r * P * es + nnz_r * 8 + (m + 1) * 8 + m * P * es,
-               nnz_r * P)),
+        # G's and B's read rows, dB written, vals and dd, cols_t and perm
+        # (int64), indptr_t; a dot's FMA, a product and an add a column
+        ("chunk_bwd_cols", fused_src, "torchsparsegradutils_tpu/kernels/"
+         "chunk_spmm.py:429 and :462 (K12a and K12b, chunk_spmm_bwd_fused's "
+         "two passes)", launches_f,
+         lambda: chunk_bwd_cols(*k12_args),
+         lambda: chunk_bwd_cols_plain(*k12_args), None,
+         bound((urows + ucols + m) * P * es + 2 * nnz_r * es
+               + 2 * nnz_r * 8 + (m + 1) * 8, 4 * nnz_r * P)),
     ]
     for name, source, replaces, lc, kern, plain, lib, (b_ms, b_by) in spec:
         reps = 5 if name == "tri_dia" else 20
@@ -3313,6 +3333,22 @@ def main() -> int:
                 lambda: torch.linalg.solve_triangular(D, eye, upper=False))
             row["device_ms"] = device_ms(kern, "tri_dia_inv")
             del D
+        elif name == "chunk_bwd_cols":
+            # no one call gives both gradients: gradA's and gradB's library
+            # calls, each alone and both in turn
+            row["library_note"] = (
+                "no single PyTorch call computes (gradA, gradB); "
+                "torch.sparse.sampled_addmm gives gradA, torch.sparse.mm "
+                "on A^T gradB")
+            gA = lambda: torch.sparse.sampled_addmm(csr_r, G, B.t(),
+                                                    beta=0.0)
+            gB = lambda: torch.sparse.mm(csr_rt, G)
+            row["library_sampled_addmm_ms"] = time_ms(gA)
+            row["library_sparse_mm_t_ms"] = time_ms(gB)
+            row["library_pair_ms"] = time_ms(lambda: (gA(), gB()))
+            row["device_ms"] = device_ms(kern, "bwd_cols")
+            # with its two K3 gathers (values in, dd out)
+            row["device_ms_with_gathers"] = device_ms(kern, "")
         elif lib is None:
             row["library_note"] = ("no single PyTorch call computes "
                                    "exp(v - out[row]) * g[row] per entry")
@@ -3341,8 +3377,6 @@ def main() -> int:
             row["per_launch"] = k8
             row["device_ms"] = device_ms(kern, "chunk_spmv_kernel")
             row["library_device_ms"] = device_ms(lib, "")
-        if name == "chunk_bwd_pass1":
-            row["device_ms"] = device_ms(kern, "bwd_rows")
         if name in ("lse_rows", "lse_rows_bwd"):
             # the event time of a launch this short is the host's pace
             row["device_ms"] = device_ms(kern, f"{name}_kernel")

@@ -27,9 +27,9 @@ from torchsparsegradutils_tpu_torch.kernels.chunk_lse import (
     LsePacks, lse_rows, lse_rows_bwd, lse_rows_bwd_plain, lse_rows_plain,
     pack_table)
 from torchsparsegradutils_tpu_torch.kernels.chunk_spmm import (
-    build_chunk_plan, chunk_bwd_pass1, chunk_bwd_pass1_plain,
-    chunk_bwd_pass2, chunk_bwd_pass2_plain, chunk_sddmm, chunk_sddmm_plain,
-    chunk_spmm, chunk_spmm_plain, chunk_spmv, chunk_spmv_plain)
+    build_chunk_plan, chunk_bwd_cols, chunk_bwd_cols_plain, chunk_sddmm,
+    chunk_sddmm_plain, chunk_spmm, chunk_spmm_plain, chunk_spmv,
+    chunk_spmv_plain)
 from torchsparsegradutils_tpu_torch.kernels.dia import (sddmm_core,
                                                         sddmm_core_plain,
                                                         spmm_core,
@@ -160,9 +160,12 @@ def test_gather_matches_plain_exactly(dev, dtype):
     assert window_gather.launches == before + 1
 
 
-def _awkward_chunk_plan():
+def _awkward_chunk_plan(transpose=False):
     """(n, m) = (700, 6000): every seventh row empty, row 5 dense with
-    5,000 entries (longer than any block), the rest uniform random."""
+    5,000 entries (longer than any block), the rest uniform random; with
+    ``transpose`` the same entries with rows and columns swapped, (6000,
+    700), so column 5 holds 5,000 entries and every seventh column is
+    empty."""
     n, m = 700, 6000
     rng = np.random.default_rng(3)
     keys = np.sort(rng.choice(n * m, 20_000, replace=False))
@@ -170,6 +173,8 @@ def _awkward_chunk_plan():
     keep = (rows % 7 != 0) & (rows != 5)
     rows = np.concatenate([rows[keep], np.full(5000, 5)])
     cols = np.concatenate([cols[keep], np.sort(rng.choice(m, 5000, False))])
+    if transpose:
+        rows, cols, n, m = cols, rows, m, n
     order = np.lexsort((cols, rows))
     return build_chunk_plan(StaticArray(rows[order]),
                             StaticArray(cols[order]), n, m)
@@ -613,34 +618,32 @@ def test_lse_kernels_at_pack_edges(dev, dtype):
                                     g.double()), dtype)
 
 
+@pytest.mark.parametrize("transpose", [False, True])
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("p", [3, 8, 33, 64, 128, 130])
-def test_fused_bwd_kernels_match_plain_and_repeat_bitwise(dev, dtype, p):
-    plan = _awkward_chunk_plan()
+@pytest.mark.parametrize("p", [3, 8, 33, 64, 128, 130, 260])
+def test_fused_bwd_kernels_match_plain_and_repeat_bitwise(dev, dtype, p,
+                                                          transpose):
+    # p = 130 and 260 walk the columns in two or three slab groups
+    plan = _awkward_chunk_plan(transpose)
     gen = torch.Generator().manual_seed(p)
     vals = torch.randn(plan.nnz, generator=gen).to(dev, dtype)
     B = torch.randn(plan.m, p, generator=gen).to(dev, dtype)
     G = torch.randn(plan.n, p, generator=gen).to(dev, dtype)
     d, dt = plan.maps(dev), plan.T.maps(dev)
-    for v_dtype in {dtype, torch.bfloat16}:
-        args = (d["indptr"], d["cols"], vals, B, G, v_dtype)
-        before = chunk_bwd_pass1.launches, chunk_bwd_pass2.launches
-        (dd, V), (dd2, V2) = chunk_bwd_pass1(*args), chunk_bwd_pass1(*args)
-        pdd, pV = chunk_bwd_pass1_plain(*args)
-        dB, dB2 = (chunk_bwd_pass2(dt["indptr"], dt["perm"], V, dtype)
-                   for _ in range(2))
+    args = (dt["indptr"], dt["cols"], dt["perm"], dt["inv"], vals, B, G)
+    for fast in (False, True):
+        before = chunk_bwd_cols.launches
+        (dd, dB), (dd2, dB2) = (chunk_bwd_cols(*args, fast)
+                                for _ in range(2))
         torch.cuda.synchronize()
-        assert (chunk_bwd_pass1.launches, chunk_bwd_pass2.launches) == (
-            before[0] + 2, before[1] + 2)
-        assert torch.equal(dd, dd2) and torch.equal(V, V2)
-        assert torch.equal(dB, dB2)
-        assert V.dtype == v_dtype and dB.dtype == dtype
-        # dd is K7's arithmetic; V one rounded product
+        assert chunk_bwd_cols.launches == before + 2
+        assert torch.equal(dd, dd2) and torch.equal(dB, dB2)
+        assert dd.dtype == dB.dtype == dtype and dB.shape == B.shape
+        # dd is K7's arithmetic, bitwise
         assert torch.equal(dd, chunk_sddmm(d["indptr"], d["cols"], G, B))
+        pdd, pdB = chunk_bwd_cols_plain(*args, fast)
         close(dd, pdd, dtype)
-        assert torch.equal(V, pV)
-        close(dB, chunk_bwd_pass2_plain(dt["indptr"], dt["perm"], V, dtype),
-              dtype)
+        close(dB, pdB, dtype)
 
 
 @pytest.mark.parametrize("kind", ["stencil", "random", "skewed"])
@@ -699,7 +702,8 @@ def test_sparse_mm_fused_on_card_matches_split(dev, monkeypatch):
 
     split = run()
     monkeypatch.setattr(dia, "SPMM_BWD", "fused")
-    before = chunk_bwd_pass1.launches, chunk_bwd_pass2.launches
+    _no_plain(monkeypatch)
+    before = chunk_bwd_cols.launches
     for gp in ("exact", "fast"):
         got = run(grad_precision=gp)
         close(got[0], split[0], torch.float32)
@@ -710,8 +714,38 @@ def test_sparse_mm_fused_on_card_matches_split(dev, monkeypatch):
             torch.testing.assert_close(got[1], split[1], rtol=3e-2,
                                        atol=3e-2)
     torch.cuda.synchronize()
-    assert chunk_bwd_pass1.launches == before[0] + 2
-    assert chunk_bwd_pass2.launches == before[1] + 2
+    assert chunk_bwd_cols.launches == before + 2     # one a backward
+
+
+@pytest.mark.parametrize("gp", ["exact", "fast"])
+def test_hybrid_residual_fused_on_card_launches_k12_once(dev, monkeypatch,
+                                                         gp):
+    monkeypatch.setattr(dia, "RESID_ENGINE", "chunk")
+    H = hybrid_sparse((3000, 3000), [-50, -1, 0, 1, 50], 30_000,
+                      dia_coverage=0.8, generator=torch.Generator(
+                          ).manual_seed(9), device=dev)
+    g = torch.Generator().manual_seed(10)
+    B = torch.randn(3000, 24, generator=g).to(dev)
+    G = torch.randn(3000, 24, generator=g).to(dev)
+
+    def run(**kw):
+        v = H.values.detach().clone().requires_grad_(True)
+        b = B.clone().requires_grad_(True)
+        out = sparse_mm(H.with_data(v), b, **kw)
+        return torch.autograd.grad(out, (v, b), G)
+
+    split = run()
+    monkeypatch.setattr(dia, "SPMM_BWD", "fused")
+    _no_plain(monkeypatch)
+    before = chunk_bwd_cols.launches
+    got = run(grad_precision=gp)
+    torch.cuda.synchronize()
+    assert chunk_bwd_cols.launches == before + 1
+    close(got[0], split[0], torch.float32)
+    if gp == "exact":
+        close(got[1], split[1], torch.float32)
+    else:
+        torch.testing.assert_close(got[1], split[1], rtol=3e-2, atol=3e-2)
 
 
 def test_lse_and_fused_wrappers_refuse_what_the_kernels_do_not_take(dev):
@@ -735,12 +769,23 @@ def test_lse_and_fused_wrappers_refuse_what_the_kernels_do_not_take(dev):
     with pytest.raises(ValueError, match="cut for 2 rows and 3 entries"):
         lse_rows_bwd(ip, v, v, v, pack_table(np.array([0, 1, 3]), dev))
     x = torch.ones(2, 4, device=dev)
-    with pytest.raises(ValueError, match="B's dtype or bfloat16"):
-        chunk_bwd_pass1(ip, ip[:2], v, x, x, torch.float64)
+    c = ip[:2]
+    with pytest.raises(ValueError, match="float32, bfloat16 or float64"):
+        chunk_bwd_cols(ip, c, c, c, v, x.double(), x)
+    with pytest.raises(ValueError, match="float32, bfloat16 or float64"):
+        chunk_bwd_cols(ip, c, c, c, v.half(), x.half(), x.half())
     with pytest.raises(ValueError, match="bad operand shapes"):
-        chunk_bwd_pass1(ip, ip[:2], v, x, x[:1], torch.float32)
-    with pytest.raises(ValueError, match="takes V in"):
-        chunk_bwd_pass2(ip, ip[:2], x.double(), torch.float32)
+        chunk_bwd_cols(ip, c, c, c, v, x, torch.ones(2, 3, device=dev))
+    with pytest.raises(ValueError, match="bad operand shapes"):
+        chunk_bwd_cols(ip, c, c[:1], c, v, x, x)
+    with pytest.raises(ValueError, match="bad operand shapes"):
+        chunk_bwd_cols(ip, c, c, c[:1], v, x, x)
+    with pytest.raises(ValueError, match="index tensors must be int64"):
+        chunk_bwd_cols(ip, c.int(), c, c, v, x, x)
+    with pytest.raises(ValueError, match="contiguous"):
+        chunk_bwd_cols(ip, c, c, c, v, x, torch.ones(4, 2, device=dev).t())
+    with pytest.raises(ValueError, match="one CUDA device"):
+        chunk_bwd_cols(ip.cpu(), c, c, c, v, x, x)
 
 
 def test_wrappers_raise_on_cuda_when_the_build_is_missing(dev, monkeypatch,
@@ -757,8 +802,9 @@ def test_wrappers_raise_on_cuda_when_the_build_is_missing(dev, monkeypatch,
                      lambda: window_gather(x[:, 0], offs),
                      lambda: tri_dia_core(np.array([0]), x, x, unit=False),
                      lambda: lse_rows(offs[:1].repeat(2), x[:0, 0], 1, True),
-                     lambda: chunk_bwd_pass2(offs.repeat(2), offs, x[:1],
-                                             torch.float32)):
+                     lambda: chunk_bwd_cols(
+                         torch.tensor([0, 1], device=dev), offs, offs, offs,
+                         x[:1, 0], x[:1], x)):
             with pytest.raises(RuntimeError, match="nvcc"):
                 call()
     finally:
@@ -883,7 +929,8 @@ def _no_plain(monkeypatch):
         return plain
     for mod, name in ((dia, "spmm_core_plain"), (dia, "sddmm_core_plain"),
                       (cs, "chunk_spmv_plain"), (cs, "chunk_spmm_plain"),
-                      (cs, "chunk_sddmm_plain")):
+                      (cs, "chunk_sddmm_plain"),
+                      (cs, "chunk_bwd_cols_plain")):
         monkeypatch.setattr(mod, name, refuse(name))
 
 

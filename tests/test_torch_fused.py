@@ -1,18 +1,20 @@
 """PyTorch port: the fused chunk backward (K12) held against the JAX
 package's ``chunk_spmm_bwd_fused``.
 
-The plain versions of the two passes against the JAX Pallas kernels,
-run in interpret mode on the CPU (p = 3, 8 and 130, V in the working
-dtype and in bfloat16); ``sparse_mm``'s gradients under
-``kernels/dia.py:SPMM_BWD = "fused"`` against the JAX package under
-``TSGU_SPMM_BWD=fused``, on the chunk path and on a hybrid residual with
-``RESID_ENGINE = "chunk"``; second derivatives and ``grad_precision``
-against the split backward.  Inputs are numpy arrays from fixed seeds,
-handed to both packages.
+The plain version of the one-pass launcher, ``chunk_bwd_cols``, against
+the JAX Pallas kernels run in interpret mode on the CPU (p = 3, 8 and
+130, exact and fast) and against the two-pass definition it replaces
+(V rows rounded to V's dtype, then summed in column order), written out
+here; ``sparse_mm``'s gradients under ``kernels/dia.py:SPMM_BWD =
+"fused"`` against the JAX package under ``TSGU_SPMM_BWD=fused``, on the
+chunk path and on a hybrid residual with ``RESID_ENGINE = "chunk"``;
+second derivatives and ``grad_precision`` against the split backward.
+Inputs are numpy arrays from fixed seeds, handed to both packages.
 
 Tolerances: float32 gradients ``1e-5/1e-5``, second derivatives
-``1e-4/1e-5``, as in ``tests/test_torch_chunk.py``; ``"fast"`` stores V
-in bfloat16, so gradB is held against exact gradients at ``3e-2``, as in
+``1e-4/1e-5``, as in ``tests/test_torch_chunk.py``; ``"fast"`` rounds
+each product to bfloat16 before the column sum, so gradB is held
+against exact gradients at ``3e-2``, as in
 ``tests/test_pallas_kernels.py:test_fast_grad_precision``, and gradA
 stays equal.
 """
@@ -55,16 +57,16 @@ def fused(monkeypatch):
 
 @pytest.fixture
 def pass_calls(monkeypatch):
-    """Counts of the two passes' plain versions (the wrappers run them
-    on CPU tensors)."""
+    """Counts of the fused backward's plain version (the launcher runs
+    it on CPU tensors): one a fused backward."""
     calls = {}
-    for name in ("chunk_bwd_pass1_plain", "chunk_bwd_pass2_plain"):
-        fn = getattr(cs, name)
+    fn = cs.chunk_bwd_cols_plain
 
-        def counted(*args, _fn=fn, _name=name):
-            calls[_name] = calls.get(_name, 0) + 1
-            return _fn(*args)
-        monkeypatch.setattr(cs, name, counted)
+    def counted(*args):
+        calls["chunk_bwd_cols_plain"] = calls.get("chunk_bwd_cols_plain",
+                                                  0) + 1
+        return fn(*args)
+    monkeypatch.setattr(cs, "chunk_bwd_cols_plain", counted)
     return calls
 
 
@@ -76,28 +78,75 @@ def test_plain_passes_match_jax_pallas():
     jpt = jcs.build_chunk_plan_transpose(jr, jc, n, m)
     plan = cs.build_chunk_plan(StaticArray(rows), StaticArray(cols), n, m)
     vals = RNG.standard_normal(plan.nnz).astype(np.float32)
-    cases = [(3, False), (8, True), (130, False), (130, True)]
+    cases = [(p, fast) for p in (3, 8, 130) for fast in (False, True)]
     Bs = [RNG.standard_normal((m, p)).astype(np.float32) for p, _ in cases]
     Gs = [RNG.standard_normal((n, p)).astype(np.float32) for p, _ in cases]
     wants = jax.jit(lambda v, Bs, Gs: [
         jcs.chunk_spmm_bwd_fused(jp, jpt, v, B, G, fast=fast)
         for (_, fast), B, G in zip(cases, Bs, Gs)])(vals, Bs, Gs)
     t = torch.from_numpy
+    dt = plan.T.maps("cpu")
     for (p, fast), B, G, (want_dd, want_dB) in zip(cases, Bs, Gs, wants):
-        dd, dB = cs.chunk_bwd_fused(plan, plan.T, t(vals), t(B), t(G), fast)
+        dd, dB = cs.chunk_bwd_cols_plain(dt["indptr"], dt["cols"],
+                                         dt["perm"], dt["inv"], t(vals),
+                                         t(B), t(G), fast)
         assert dd.dtype == dB.dtype == torch.float32
+        assert dB.shape == (m, p)
         np.testing.assert_allclose(dd.numpy(), np.asarray(want_dd), **GRAD32)
         np.testing.assert_allclose(dB.numpy(), np.asarray(want_dB), **GRAD32)
-        # the plain version of the pair is the same arithmetic
-        pdd, pdB = cs.chunk_bwd_fused_plain(plan, plan.T, t(vals), t(B),
-                                            t(G), fast)
-        assert torch.equal(pdd, dd) and torch.equal(pdB, dB)
-        _, V = cs.chunk_bwd_pass1(*(plan.maps("cpu")[k] for k in
-                                    ("indptr", "cols")), t(vals), t(B),
-                                  t(G), torch.bfloat16 if fast else
-                                  torch.float32)
-        assert V.shape == (plan.nnz, p)
-        assert V.dtype == (torch.bfloat16 if fast else torch.float32)
+        # the launcher on CPU tensors and the pair's entry points are it
+        for got in (cs.chunk_bwd_cols(dt["indptr"], dt["cols"], dt["perm"],
+                                      dt["inv"], t(vals), t(B), t(G), fast),
+                    cs.chunk_bwd_fused(plan, plan.T, t(vals), t(B), t(G),
+                                       fast),
+                    cs.chunk_bwd_fused_plain(plan, plan.T, t(vals), t(B),
+                                             t(G), fast)):
+            assert torch.equal(got[0], dd) and torch.equal(got[1], dB)
+
+
+def _hub_column_plan():
+    """(n, m) = (45, 30): every fifth row and every seventh column
+    empty, column 4 holding an entry of every other row (a long
+    column), the rest random at 20 %."""
+    n, m = 45, 30
+    rng = np.random.default_rng(17)
+    mask = rng.random((n, m)) < 0.2
+    mask[:, 4] = True
+    mask[::5, :] = False
+    mask[:, ::7] = False
+    rows, cols = np.nonzero(mask)
+    return cs.build_chunk_plan(StaticArray(rows), StaticArray(cols), n, m)
+
+
+@pytest.mark.parametrize("fast", [False, True])
+@pytest.mark.parametrize("p", [0, 1, 3, 8, 130])
+def test_plain_matches_two_pass_definition(p, fast):
+    plan = _hub_column_plan()
+    n, m = plan.n, plan.m
+    assert np.diff(plan.T.indptr).max() == 36       # the long column
+    assert (np.diff(plan.indptr) == 0).sum() == 9
+    assert (np.diff(plan.T.indptr) == 0).sum() == 5
+    rng = np.random.default_rng(100 + p)
+    t = lambda a: torch.from_numpy(a.astype(np.float32))
+    vals = t(rng.standard_normal(plan.nnz))
+    B, G = t(rng.standard_normal((m, p))), t(rng.standard_normal((n, p)))
+    dt = plan.T.maps("cpu")
+    dd, dB = cs.chunk_bwd_cols_plain(dt["indptr"], dt["cols"], dt["perm"],
+                                     dt["inv"], vals, B, G, fast)
+    # the two passes it replaces: V[e] = vals[e] · G[row_e] stored in V's
+    # dtype, then V's rows summed one by one in column order
+    rows = np.repeat(np.arange(n), np.diff(plan.indptr))
+    V = (vals[:, None] * G[torch.from_numpy(rows)]).to(
+        torch.bfloat16 if fast else torch.float32).float()
+    want = torch.zeros(m, p)
+    for c in range(m):
+        for d in range(plan.T.indptr[c], plan.T.indptr[c + 1]):
+            want[c] += V[plan.T.perm[d]]
+    np.testing.assert_allclose(dB.numpy(), want.numpy(), **GRAD32)
+    d = plan.maps("cpu")
+    assert torch.equal(dd, cs.chunk_sddmm_plain(d["indptr"], d["cols"], G,
+                                                B))
+    assert dd.shape == (plan.nnz,) and dB.shape == (m, p)
 
 
 def grads(A, B, G, second=False, **kw):
@@ -140,8 +189,7 @@ def test_sparse_mm_fused_matches_jax(fused, pass_calls, grad_precision):
     got = grads(A, B, G, backend="pallas", grad_precision=grad_precision)
     for g_, w_ in zip(got, want):
         np.testing.assert_allclose(g_, np.asarray(w_), **GRAD32)
-    assert pass_calls == {"chunk_bwd_pass1_plain": 1,
-                          "chunk_bwd_pass2_plain": 1}
+    assert pass_calls == {"chunk_bwd_cols_plain": 1}
     split = grads(A, B, G, backend="xla")      # exact gradients
     np.testing.assert_allclose(got[1], split[1], **GRAD32)
     np.testing.assert_allclose(got[2], split[2],
@@ -155,8 +203,7 @@ def test_second_derivatives_under_fused_match_split(monkeypatch, pass_calls):
     assert pass_calls == {}
     monkeypatch.setattr(dia, "SPMM_BWD", "fused")
     got = grads(A, B, G, second=True, backend="pallas")
-    assert pass_calls == {"chunk_bwd_pass1_plain": 1,
-                          "chunk_bwd_pass2_plain": 1}
+    assert pass_calls == {"chunk_bwd_cols_plain": 1}
     for g_, w_, tol in zip(got, split, (GRAD32, GRAD32, GRAD32, HESS32,
                                         HESS32)):
         np.testing.assert_allclose(g_, w_, **tol)
@@ -193,16 +240,14 @@ def test_hybrid_residual_fused_matches_jax(fused, pass_calls, monkeypatch):
         got = dia.dia_bwd_pair(pt, H.values, t(B), t(G), fast=fast)
         for g_, w_ in zip(got, want):
             np.testing.assert_allclose(g_.numpy(), np.asarray(w_), **GRAD32)
-    assert pass_calls == {"chunk_bwd_pass1_plain": 2,
-                          "chunk_bwd_pass2_plain": 2}
+    assert pass_calls == {"chunk_bwd_cols_plain": 2}
     # sparse_mm's own backward takes the fused residual too
     got = grads(H, B, G, second=True)
     monkeypatch.setattr(dia, "SPMM_BWD", "split")
     for g_, w_, tol in zip(got, grads(H, B, G, second=True),
                            (GRAD32, GRAD32, GRAD32, HESS32, HESS32)):
         np.testing.assert_allclose(g_, w_, **tol)
-    assert pass_calls == {"chunk_bwd_pass1_plain": 3,
-                          "chunk_bwd_pass2_plain": 3}
+    assert pass_calls == {"chunk_bwd_cols_plain": 3}
 
 
 def test_switch_values():
@@ -224,6 +269,10 @@ def test_pass_wrappers_refuse_non_cpu_tensors():
     v = torch.empty(2, device="meta")
     M = torch.empty(2, 4, device="meta")
     with pytest.raises(ValueError, match="CUDA device"):
-        cs.chunk_bwd_pass1(idx, idx[:2], v, M, M, torch.float32)
+        cs.chunk_bwd_cols(idx, idx[:2], idx[:2], idx[:2], v, M, M)
     with pytest.raises(ValueError, match="CUDA device"):
-        cs.chunk_bwd_pass2(idx, idx[:2], M, torch.float32)
+        cs.chunk_bwd_cols(idx, idx[:2], idx[:2], idx[:2], v, M, M, True)
+    # CPU indices with tensors elsewhere: no quiet plain version either
+    cpu = torch.zeros(3, dtype=torch.int64)
+    with pytest.raises(ValueError, match="CUDA device"):
+        cs.chunk_bwd_cols(cpu, cpu[:2], cpu[:2], cpu[:2], v, M, M)

@@ -1,7 +1,7 @@
 // Lane layout of the chunk kernels that gather rows of a dense operand
 // one column slab at a time: the SpMM K6 and K13 (chunk_spmm.cu), the
-// SDDMM K7 (chunk_sddmm.cu) and the fused backward's pass 1, K12a
-// (chunk_bwd_fused.cu).
+// SDDMM K7 (chunk_sddmm.cu) and the fused backward K12
+// (chunk_bwd_fused.cu, over the transpose plan's columns).
 //
 // A warp works on one row of the pattern and one slab of the gathered
 // operand's columns.  G = 2^lg lanes share an entry, each holding W
@@ -126,10 +126,12 @@ __device__ __forceinline__ typename Acc<T>::type lane_dot(
 // is fixed, so every lane that holds a sum holds the same bits.  After
 // it the lane holds U >> h sums, v[i] that of round b (U >> h) + i, b the
 // lane's bits lg - h .. lg - 1.  It takes U - (U >> h) + lg - h
-// shuffles, not U lg.  K7 and K12a both sum each slab's share of an SDDMM entry with
-// lane_dot and this, and add the shares in slab order, slab 0 first,
-// which is why their gradA are bitwise equal.  Every lane of the warp
-// calls it together.
+// shuffles, not U lg.  An entry's sum depends only on its own lanes'
+// values and lg, not on its slot or round.  K7 and K12 both sum each
+// slab's share of an SDDMM entry with lane_dot's arithmetic and this, and
+// add the shares in slab order, slab 0 first, which is why their gradA
+// are bitwise equal, though K12 meets the entries in column order.  Every
+// lane of the warp calls it together.
 template <int U, typename A>
 __device__ __forceinline__ void group_sums(A (&v)[U], int lg, int lane) {
   constexpr int LU = log2_of(U);

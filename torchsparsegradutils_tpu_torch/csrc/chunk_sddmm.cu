@@ -64,7 +64,7 @@
 //   16-byte aligned X and Y; otherwise the scalar path takes one element
 //   a lane.
 // No atomics: the result is the same on every run, and the fused
-// backward's pass 1 (chunk_bwd_fused.cu) gives the same bits.
+// backward's gradA (chunk_bwd_fused.cu) gives the same bits.
 #include "chunk_lanes.cuh"
 
 namespace {

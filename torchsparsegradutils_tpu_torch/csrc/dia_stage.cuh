@@ -9,7 +9,8 @@
 // a dense operand into shared memory with cp.async: VW consecutive
 // elements a copy, zero-filled where the row lies outside the operand
 // (source size 0, the source clamped to the base).  Blocks are persistent:
-// a kernel asks resident_blocks how many fit the card at once.
+// a kernel asks resident_blocks (tsgu_common.cuh) how many fit the card
+// at once.
 #pragma once
 
 #include "tsgu_common.cuh"
@@ -97,46 +98,6 @@ __device__ __forceinline__ void load_vec(const T* p, A (&v)[VW]) {
   } else {
     v[0] = load_acc(p);
   }
-}
-
-// What resident_blocks keeps of one kernel, per device: the shared memory
-// it was opted in to, and the blocks that fit an SM at the last size
-// asked.  Each kernel instantiation holds its own (a static of its launch
-// function, zero at start).
-struct Fit {
-  int64_t opted[64], smem[64];
-  int fit[64], sms[64];
-};
-
-// The blocks of NT threads with SMEM bytes of dynamic shared memory that
-// fit the card at once, in *blocks.  Above 48 KB a kernel must opt in,
-// once per device.  Returns a CUDA error code, 0 on success.
-template <typename Kernel>
-int resident_blocks(Kernel kernel, Fit& f, int NT, int64_t smem,
-                    int64_t* blocks) {
-  int dev = 0;
-  cudaError_t rc = cudaGetDevice(&dev);
-  if (rc != cudaSuccess) return (int)rc;
-  if (dev >= 64) return (int)cudaErrorInvalidDevice;
-  if (smem > 48 * 1024 && f.opted[dev] < smem) {
-    rc = cudaFuncSetAttribute(kernel,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)smem);
-    if (rc != cudaSuccess) return (int)rc;
-    f.opted[dev] = smem;
-  }
-  if (f.smem[dev] != smem || f.fit[dev] == 0) {
-    rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&f.fit[dev], kernel,
-                                                       NT, (size_t)smem);
-    if (rc == cudaSuccess)
-      rc = cudaDeviceGetAttribute(&f.sms[dev],
-                                  cudaDevAttrMultiProcessorCount, dev);
-    if (rc != cudaSuccess) return (int)rc;
-    if (f.fit[dev] == 0) return (int)cudaErrorInvalidConfiguration;
-    f.smem[dev] = smem;
-  }
-  *blocks = (int64_t)f.fit[dev] * f.sms[dev];
-  return 0;
 }
 
 }  // namespace tsgu

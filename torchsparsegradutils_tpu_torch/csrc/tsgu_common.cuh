@@ -35,13 +35,21 @@ __device__ __forceinline__ double fma_acc(double a, double b, double c) {
   return __fma_rn(a, b, c);
 }
 
+// A product rounded to nearest on its own: the compiler does not contract
+// it with a later add into an FMA.
+__device__ __forceinline__ float mul_acc(float a, float b) {
+  return __fmul_rn(a, b);
+}
+__device__ __forceinline__ double mul_acc(double a, double b) {
+  return __dmul_rn(a, b);
+}
+
 // Largest diagonal count of a DIA plan (kernels/dia.py MAX_DIAGS).
 constexpr int MAX_DIAGS = 256;
 
 // Four consecutive storage elements as one load or store: 16 bytes of
 // float, 8 of bfloat16, two 16-byte halves of double.  The caller
-// guarantees the alignment (chunk kernels: p % 4 == 0 and 16-byte base
-// pointers, so every row start qualifies).
+// guarantees the alignment.
 __device__ __forceinline__ void load4(const float* p, float (&v)[4]) {
   const float4 q = *reinterpret_cast<const float4*>(p);
   v[0] = q.x; v[1] = q.y; v[2] = q.z; v[3] = q.w;
@@ -83,48 +91,6 @@ __device__ __forceinline__ void store4(double* p, const double (&v)[4]) {
   reinterpret_cast<double2*>(p)[1] = make_double2(v[2], v[3]);
 }
 
-// Columns of a dense row that one warp covers at a time: 32 lanes x 4.
-constexpr int TILE = 128;
-
-// A lane's four columns of the tile that starts at column t0 of a row of
-// p: with VEC the consecutive t0 + 4 lane + i (one vector access; needs
-// p % 4 == 0), else the strided t0 + lane + 32 i.  Columns at or past p
-// read as 0 and are not written.
-template <bool VEC, typename T, typename A>
-__device__ __forceinline__ void load_tile(const T* row, int64_t t0, int lane,
-                                          int64_t p, A (&v)[4]) {
-  if (VEC) {
-    const int64_t j = t0 + 4 * lane;
-    if (j < p) {
-      load4(row + j, v);
-    } else {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) v[i] = A(0);
-    }
-  } else {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int64_t j = t0 + lane + 32 * i;
-      v[i] = j < p ? load_acc(row + j) : A(0);
-    }
-  }
-}
-
-template <bool VEC, typename T, typename A>
-__device__ __forceinline__ void store_tile(T* row, int64_t t0, int lane,
-                                           int64_t p, const A (&v)[4]) {
-  if (VEC) {
-    const int64_t j = t0 + 4 * lane;
-    if (j < p) store4(row + j, v);
-  } else {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int64_t j = t0 + lane + 32 * i;
-      if (j < p) store_acc(row + j, v[i]);
-    }
-  }
-}
-
 // Sum over the 32 lanes of a warp; every lane gets the total.  The
 // butterfly order is fixed, so the result is the same on every run.
 template <typename A>
@@ -134,11 +100,44 @@ __device__ __forceinline__ A warp_sum(A s) {
   return s;
 }
 
-// Whether the vector path may take rows of p elements at these bases.
-__host__ __forceinline__ bool vec_ok(int64_t p, const void* a,
-                                     const void* b) {
-  return p % 4 == 0 && reinterpret_cast<uintptr_t>(a) % 16 == 0 &&
-         reinterpret_cast<uintptr_t>(b) % 16 == 0;
+// What resident_blocks keeps of one kernel, per device: the shared memory
+// it was opted in to, and the blocks that fit an SM at the last size
+// asked.  Each kernel instantiation holds its own (a static of its launch
+// function, zero at start).
+struct Fit {
+  int64_t opted[64], smem[64];
+  int fit[64], sms[64];
+};
+
+// The blocks of NT threads with SMEM bytes of dynamic shared memory that
+// fit the card at once, in *blocks.  Above 48 KB a kernel must opt in,
+// once per device.  Returns a CUDA error code, 0 on success.
+template <typename Kernel>
+int resident_blocks(Kernel kernel, Fit& f, int NT, int64_t smem,
+                    int64_t* blocks) {
+  int dev = 0;
+  cudaError_t rc = cudaGetDevice(&dev);
+  if (rc != cudaSuccess) return (int)rc;
+  if (dev >= 64) return (int)cudaErrorInvalidDevice;
+  if (smem > 48 * 1024 && f.opted[dev] < smem) {
+    rc = cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)smem);
+    if (rc != cudaSuccess) return (int)rc;
+    f.opted[dev] = smem;
+  }
+  if (f.smem[dev] != smem || f.fit[dev] == 0) {
+    rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&f.fit[dev], kernel,
+                                                       NT, (size_t)smem);
+    if (rc == cudaSuccess)
+      rc = cudaDeviceGetAttribute(&f.sms[dev],
+                                  cudaDevAttrMultiProcessorCount, dev);
+    if (rc != cudaSuccess) return (int)rc;
+    if (f.fit[dev] == 0) return (int)cudaErrorInvalidConfiguration;
+    f.smem[dev] = smem;
+  }
+  *blocks = (int64_t)f.fit[dev] * f.sms[dev];
+  return 0;
 }
 
 }  // namespace tsgu

@@ -24,7 +24,10 @@ PyTorch version: :func:`chunk_spmm` (``csrc/chunk_spmm.cu``),
 :func:`chunk_sddmm` (``csrc/chunk_sddmm.cu``) and :func:`chunk_spmv`
 (``csrc/chunk_spmv.cu``).  :func:`chunk_spmm_slab` (K13, a separate
 entry of ``csrc/chunk_spmm.cu``) computes one row slab of the SpMM for
-the sharded path (``parallel/chunk_sharded.py``).  On CPU tensors the
+the sharded path (``parallel/chunk_sharded.py``), and
+:func:`chunk_bwd_cols` (K12, ``csrc/chunk_bwd_fused.cu``) both gradients
+of the SpMM in one pass over the transpose plan, the fused backward
+(``kernels/dia.py:SPMM_BWD = "fused"``).  On CPU tensors the
 wrappers run the plain versions; on CUDA tensors they launch the
 kernels or raise.
 :class:`ChunkSpmm` and :class:`ChunkSddmm` make them differentiable,
@@ -53,17 +56,16 @@ import torch
 from ..types import StaticArray
 from . import _build
 from .row_packs import LsePacks, _packs_for, plan_packs
-from .window_gather import WindowGather
+from .window_gather import WindowGather, window_gather
 
 __all__ = ["ChunkPlan", "build_chunk_plan", "build_chunk_plan_transpose",
            "transpose_order", "chunk_spmm", "chunk_spmm_slab", "chunk_sddmm",
            "chunk_spmv",
-           "chunk_bwd_pass1", "chunk_bwd_pass2", "chunk_bwd_fused",
+           "chunk_bwd_cols", "chunk_bwd_fused",
            "ChunkSpmm", "ChunkSddmm", "ChunkBwdPair"]
 
-TILE = 128               # columns a warp covers per block in K12b (csrc TILE)
 MAX_COL_BLOCKS = 65535   # CUDA grid y limit: column blocks (slabs) a launch
-# K6's, K13's, K7's and K12a's column slab of the gathered operand: two
+# K6's, K13's, K7's and K12's column slab of the gathered operand: two
 # 128-byte lines of a row, or four where the rows hold fewer than SHORT_ROW
 # entries on average (fewer passes over short rows); csrc/chunk_spmm.cu's
 # and csrc/chunk_sddmm.cu's head comments give the times.
@@ -227,7 +229,7 @@ def chunk_spmm_plain(indptr, cols, values, B):
 
 
 def slab_bytes(nnz: int, n: int) -> int:
-    """Bytes of a gathered row that one slab of K6, K13, K7 or K12a
+    """Bytes of a gathered row that one slab of K6, K13, K7 or K12
     covers, for a pattern of ``nnz`` entries in ``n`` rows:
     :data:`SHORT_SLAB_BYTES` where the rows hold fewer than
     :data:`SHORT_ROW` entries on average, else :data:`SLAB_BYTES`."""
@@ -363,7 +365,7 @@ def chunk_sddmm_plain(indptr, cols, X, Y):
 
 def sddmm_passes(p: int, dtype: torch.dtype, aligned: bool, nnz: int,
                  n: int):
-    """K7's (and K12a's) lanes and column slabs for operands of width
+    """K7's (and K12's) lanes and column slabs for operands of width
     ``p`` at a pattern of ``nnz`` entries in ``n`` rows: ``(path, lg,
     cols, passes)``, :func:`spmm_lanes` at :func:`slab_bytes`'s slab
     (``aligned``: X and Y, or G and B, both 16-byte aligned) and the
@@ -465,121 +467,104 @@ def chunk_spmv(indptr: torch.Tensor, cols: torch.Tensor,
 chunk_spmv.launches = 0
 
 
-def chunk_bwd_pass1_plain(indptr, cols, values, B, G, v_dtype):
-    """Plain PyTorch version of :func:`chunk_bwd_pass1`."""
+def chunk_bwd_cols_plain(indptr_t, cols_t, perm, inv, values, B, G,
+                         fast: bool = False):
+    """Plain PyTorch version of :func:`chunk_bwd_cols`: ``dd`` is
+    :func:`chunk_sddmm_plain`'s arithmetic at A's entries, ``dB`` the
+    column sums of the products ``values[e] · G[row_e]`` rounded to
+    bfloat16 (``fast``, or B in bfloat16), summed in the accumulation
+    dtype."""
     acc = _build.acc_dtype(B.dtype)
-    V = values.to(acc)[:, None] * G.to(acc).index_select(
-        0, _entry_rows(indptr))
-    return chunk_sddmm_plain(indptr, cols, G, B), V.to(v_dtype)
+    col = _entry_rows(indptr_t)           # A's column of each entry, in order
+    rows, cols = cols_t.index_select(0, inv), col.index_select(0, inv)
+    dd = (G.to(acc).index_select(0, rows) * B.to(acc).index_select(
+        0, cols)).sum(-1).to(B.dtype)
+    prod = values.to(acc).index_select(0, perm)[:, None] * G.to(
+        acc).index_select(0, cols_t)
+    prod = prod.to(torch.bfloat16 if fast else B.dtype).to(acc)
+    dB = torch.zeros(B.shape, dtype=acc, device=B.device)
+    return dd, dB.index_add_(0, col, prod).to(B.dtype)
 
 
-def chunk_bwd_pass1(indptr: torch.Tensor, cols: torch.Tensor,
-                    values: torch.Tensor, B: torch.Tensor, G: torch.Tensor,
-                    v_dtype: torch.dtype):
-    """Pass 1 of the fused backward of ``A @ B`` (K12a): ``dd[e] =
-    dot(G[r], B[cols[e]])`` and ``V[e, :] = values[e] · G[r, :]`` for the
-    entries of row ``r``: G (n, p), B (m, p) -> dd (nnz,), V (nnz, p) in
-    ``v_dtype`` (B's dtype, or bfloat16 under ``grad_precision="fast"``).
+def chunk_bwd_cols(indptr_t: torch.Tensor, cols_t: torch.Tensor,
+                   perm: torch.Tensor, inv: torch.Tensor,
+                   values: torch.Tensor, B: torch.Tensor, G: torch.Tensor,
+                   fast: bool = False):
+    """The fused backward of ``A @ B`` (K12) in one pass over the
+    transpose plan: for each column ``c`` of A and each position ``d`` in
+    ``[indptr_t[c], indptr_t[c+1])``, with ``r = cols_t[d]`` and ``e =
+    perm[d]``, ``dd[e] = dot(G[r], B[c])`` (gradA, in A's entry order)
+    and ``dB[c] = Σ_d values[e] · G[r]`` (gradB = Aᵀ G), each product
+    rounded to bfloat16 before the sum under ``fast``
+    (``grad_precision="fast"``): indptr_t (m+1,), cols_t, perm and its
+    inverse inv (nnz,), values (nnz,) in A's order, B (m, p), G (n, p)
+    -> dd (nnz,), dB (m, p).
 
-    CPU tensors take :func:`chunk_bwd_pass1_plain`; CUDA tensors launch
-    ``csrc/chunk_bwd_fused.cu`` and raise on what it does not take.
+    CPU tensors take :func:`chunk_bwd_cols_plain`.  CUDA tensors launch
+    ``csrc/chunk_bwd_fused.cu`` on K7's lanes and slabs for (X, Y) = (G,
+    B), so dd is :func:`chunk_sddmm`'s bitwise, between two K3 gathers
+    (:func:`.window_gather.window_gather`): the values into column order
+    before it, its dd into A's order after it; and raise on what they do
+    not take.
     """
-    if all(t.device.type == "cpu" for t in (indptr, cols, values, B, G)):
-        return chunk_bwd_pass1_plain(indptr, cols, values, B, G, v_dtype)
-    suffix = _build.cuda_operands("chunk_bwd_pass1", (values, B, G),
-                                  (indptr, cols))
-    if indptr.ndim != 1 or values.shape != cols.shape or cols.ndim != 1 \
-            or B.ndim != 2 or G.shape != (indptr.shape[0] - 1, B.shape[1]):
-        raise _shapes("chunk_bwd_pass1", indptr, cols, values, B, G)
-    if v_dtype not in (B.dtype, torch.bfloat16):
-        raise ValueError(f"chunk_bwd_pass1: V is stored in B's dtype or "
-                         f"bfloat16, got {v_dtype}")
-    n, p = G.shape
-    dd = torch.empty_like(values)
-    V = torch.empty((values.shape[0], p), dtype=v_dtype, device=B.device)
-    if V.numel() == 0:
-        return dd.zero_(), V
+    if all(t.device.type == "cpu" for t in (indptr_t, cols_t, perm, inv,
+                                             values, B, G)):
+        return chunk_bwd_cols_plain(indptr_t, cols_t, perm, inv, values, B,
+                                    G, fast)
+    suffix = _build.cuda_operands("chunk_bwd_cols", (values, B, G),
+                                  (indptr_t, cols_t, perm, inv))
+    if indptr_t.ndim != 1 or cols_t.ndim != 1 \
+            or not cols_t.shape == perm.shape == inv.shape == values.shape \
+            or B.ndim != 2 or G.ndim != 2 \
+            or B.shape != (indptr_t.shape[0] - 1, G.shape[1]):
+        raise _shapes("chunk_bwd_cols", indptr_t, cols_t, perm, inv, values,
+                      B, G)
+    if G.shape[0] > MAX_SDDMM_ROWS:
+        raise ValueError(f"chunk_bwd_cols: takes at most {MAX_SDDMM_ROWS} "
+                         f"rows of G, got {G.shape[0]}")
+    (n, p), m, nnz = G.shape, B.shape[0], values.shape[0]
+    dB = torch.empty((m, p), dtype=B.dtype, device=B.device)
+    if nnz == 0 or p == 0:
+        return torch.zeros_like(values), dB.zero_()
     # K7's lanes and slabs for (X, Y) = (G, B), so that dd is K7's bitwise
-    path, lg, _ = _sddmm_launch_args("chunk_bwd_pass1", indptr, cols, G,
-                                     B)
-    _build.launch("chunk_bwd_fused", f"tsgu_chunk_bwd_rows_{suffix}_"
-                  f"{_build.suffix(v_dtype)}_{path}", indptr, cols, values,
-                  B, G, dd, V, n, p, lg)
-    chunk_bwd_pass1.launches += 1
-    return dd, V
-
-
-chunk_bwd_pass1.launches = 0
-
-
-def chunk_bwd_pass2_plain(indptr_t, perm, V, dtype):
-    """Plain PyTorch version of :func:`chunk_bwd_pass2`."""
-    acc = _build.acc_dtype(dtype)
-    out = torch.zeros((indptr_t.shape[0] - 1, V.shape[1]), dtype=acc,
-                      device=V.device)
-    return out.index_add_(0, _entry_rows(indptr_t),
-                          V.index_select(0, perm).to(acc)).to(dtype)
-
-
-def chunk_bwd_pass2(indptr_t: torch.Tensor, perm: torch.Tensor,
-                    V: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    """Pass 2 of the fused backward (K12b): ``d_B[c, :] = Σ V[perm[d], :]``
-    over the transpose plan's entries ``d`` of column ``c``: indptr_t
-    (m+1,), perm (nnz,), V (nnz, p) -> (m, p) in ``dtype``.
-
-    CPU tensors take :func:`chunk_bwd_pass2_plain`; CUDA tensors launch
-    ``csrc/chunk_bwd_fused.cu`` and raise on what it does not take.
-    """
-    if all(t.device.type == "cpu" for t in (indptr_t, perm, V)):
-        return chunk_bwd_pass2_plain(indptr_t, perm, V, dtype)
-    v_suffix = _build.cuda_operands("chunk_bwd_pass2", (V,),
-                                    (indptr_t, perm))
-    if indptr_t.ndim != 1 or perm.ndim != 1 or V.ndim != 2 \
-            or V.shape[0] != perm.shape[0]:
-        raise _shapes("chunk_bwd_pass2", indptr_t, perm, V)
-    if V.dtype not in (dtype, torch.bfloat16) or \
-            dtype not in (torch.float32, torch.bfloat16, torch.float64):
-        raise ValueError(f"chunk_bwd_pass2: takes V in {dtype} or "
-                         f"bfloat16, got {V.dtype}")
-    m, p = indptr_t.shape[0] - 1, V.shape[1]
-    if p > TILE * MAX_COL_BLOCKS:
-        raise ValueError(f"chunk_bwd_pass2: takes p <= "
-                         f"{TILE * MAX_COL_BLOCKS}, got {p}")
-    out = torch.empty((m, p), dtype=dtype, device=V.device)
-    if out.numel() == 0:
-        return out
+    path, lg, _, _ = sddmm_passes(
+        p, B.dtype, G.data_ptr() % 16 == 0 and B.data_ptr() % 16 == 0, nnz,
+        n)
+    vals_t = window_gather(values, perm)
+    # dd in column order, in the accumulation dtype: the slabs' running sum
+    dd_t = torch.empty(nnz, dtype=_build.acc_dtype(B.dtype),
+                       device=B.device)
+    rsuffix = "bf16" if fast else suffix
     _build.launch("chunk_bwd_fused",
-                  f"tsgu_chunk_bwd_cols_{_build.suffix(dtype)}_{v_suffix}",
-                  indptr_t, perm, V, out, m, p)
-    chunk_bwd_pass2.launches += 1
-    return out
+                  f"tsgu_chunk_bwd_cols_{suffix}_{rsuffix}_{path}", indptr_t,
+                  cols_t, vals_t, B, G, dd_t, dB, m, p, lg)
+    chunk_bwd_cols.launches += 1
+    return window_gather(dd_t, inv).to(B.dtype), dB
 
 
-chunk_bwd_pass2.launches = 0
+chunk_bwd_cols.launches = 0
 
 
 def chunk_bwd_fused(plan: "ChunkPlan", plan_t: "ChunkPlan", values, B, G,
                     fast: bool = False):
     """``(d_values, d_B)`` of ``A @ B`` for the output cotangent ``G`` by
-    the fused backward: pass 1 over ``plan`` (gradA and the V rows),
-    pass 2 over the transpose plan ``plan_t``, which sums V's rows in
-    column order with no per-entry value reorder.  ``fast`` stores V in
-    bfloat16 (half its bytes; gradB gains about 1e-3 relative error,
-    gradA stays exact)."""
-    d, dt = plan.maps(B.device), plan_t.maps(B.device)
-    dd, V = chunk_bwd_pass1(d["indptr"], d["cols"], values.contiguous(),
-                            B.contiguous(), G.contiguous(),
-                            torch.bfloat16 if fast else B.dtype)
-    return dd, chunk_bwd_pass2(dt["indptr"], dt["perm"], V, B.dtype)
+    the fused backward, :func:`chunk_bwd_cols` over ``plan``'s transpose
+    plan ``plan_t`` (whose maps are all it reads): one pass in column
+    order that writes no (nnz, p) rows.  ``fast`` rounds each product ``values[e] · G[row_e]`` to
+    bfloat16 before the column sum (gradB gains about 1e-3 relative
+    error, gradA stays exact)."""
+    dt = plan_t.maps(B.device)
+    return chunk_bwd_cols(dt["indptr"], dt["cols"], dt["perm"], dt["inv"],
+                          values.contiguous(), B.contiguous(),
+                          G.contiguous(), fast)
 
 
 def chunk_bwd_fused_plain(plan: "ChunkPlan", plan_t: "ChunkPlan", values, B,
                           G, fast: bool = False):
     """Plain PyTorch version of :func:`chunk_bwd_fused`, on any device."""
-    d, dt = plan.maps(B.device), plan_t.maps(B.device)
-    dd, V = chunk_bwd_pass1_plain(d["indptr"], d["cols"], values, B, G,
-                                  torch.bfloat16 if fast else B.dtype)
-    return dd, chunk_bwd_pass2_plain(dt["indptr"], dt["perm"], V, B.dtype)
+    dt = plan_t.maps(B.device)
+    return chunk_bwd_cols_plain(dt["indptr"], dt["cols"], dt["perm"],
+                                dt["inv"], values, B, G, fast)
 
 
 # --------------------------------------------------------------------------
@@ -595,7 +580,8 @@ class ChunkSpmm(torch.autograd.Function):
     ChunkSddmm(plan, G, B)`` and ``d_B = ChunkSpmm(plan.T,
     plan.to_T(values), G)``.  With ``fused`` a bool (the
     ``kernels/dia.py:SPMM_BWD = "fused"`` switch), both come from
-    :class:`ChunkBwdPair`, V in bfloat16 when ``fused`` is True.
+    :class:`ChunkBwdPair`, one launch of K12, its products rounded to
+    bfloat16 when ``fused`` is True.
     """
 
     @staticmethod
@@ -628,8 +614,8 @@ class ChunkSpmm(torch.autograd.Function):
 
 
 class ChunkBwdPair(torch.autograd.Function):
-    """``(d_values, d_B)`` of ``A @ B`` by :func:`chunk_bwd_fused` (K12a,
-    K12b), the JAX package's ``_spmm_bwd_pair`` under
+    """``(d_values, d_B)`` of ``A @ B`` by :func:`chunk_bwd_fused` (K12),
+    the JAX package's ``_spmm_bwd_pair`` under
     ``TSGU_SPMM_BWD=fused``.  Its own backward is built from
     :class:`ChunkSddmm` and :class:`ChunkSpmm` (split), so second
     derivatives match the split backward's."""

@@ -651,16 +651,17 @@ RESID_ENGINE = "auto"
 # Backward of the chunk engine's A @ B, in place of the JAX package's
 # TSGU_SPMM_BWD: "split" (K7 for gradA, K6 over the transpose plan on
 # values reordered by the K3 gather for gradB) or "fused" (K12: one pass
-# writing gradA and the (nnz, p) rows V = val · G[row], then their
-# column-order sum).  It covers sparse_mm's chunk path and the hybrid
-# residual.  The fused pair moves more bytes than split (the V rows), on
-# the card as on the TPU, so split stays the default.
+# over the transpose plan that gathers each entry's G row once for both
+# gradients and writes no (nnz, p) rows).  It covers sparse_mm's chunk
+# path and the hybrid residual.  Split stays the default, as the JAX
+# package's TSGU_SPMM_BWD defaults to split.
 SPMM_BWD = "split"
 
 
 def chunk_bwd_fused_arg(grad_precision: str = "exact"):
     """``ChunkSpmm``'s ``fused`` argument under :data:`SPMM_BWD`: None
-    for the split backward, else whether V is stored in bfloat16
+    for the split backward, else whether the fused backward rounds its
+    products to bfloat16 before the column sum
     (``grad_precision="fast"``)."""
     if SPMM_BWD == "split":
         return None
@@ -761,8 +762,8 @@ def dia_bwd_pair(plan: DiaPlan, values, B, g, gv=None, fast=False):
     """``(d_values, d_B)`` of ``A @ B`` for the output cotangent ``g``:
     the SDDMM at the pattern and Aᵀ g.  Built of the differentiable
     Functions, so it can be differentiated again.  Under ``SPMM_BWD =
-    "fused"`` a residual on the chunk engine takes the fused pair (V in
-    bfloat16 when ``fast``)."""
+    "fused"`` a residual on the chunk engine takes the fused backward
+    (its products rounded to bfloat16 when ``fast``)."""
     grid = values_to_grid(plan, values) if gv is None else gv
     d_values = grid_to_values(plan, DiaSddmmCore.apply(plan.geo, g, B))
     d_B = DiaSpmmCore.apply(plan.geo.T, plan.geo.shift(grid), g)

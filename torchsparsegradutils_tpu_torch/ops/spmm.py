@@ -185,8 +185,9 @@ def sparse_mm(A: Union[SparseCOO, SparseCSR], B, *, backend: str = "auto",
       backend: ``"auto"`` | ``"dia"`` | ``"pallas"`` (the chunk
         engine) | ``"xla"`` (``"ell"`` raises until the ELL engine is
         ported).
-      grad_precision: ``"exact"`` or ``"fast"``.  ``"fast"`` stores the
-        fused chunk backward's ``(nnz, p)`` V rows in bfloat16 (under
+      grad_precision: ``"exact"`` or ``"fast"``.  ``"fast"`` rounds the
+        fused chunk backward's products ``values[e] · G[row_e]`` to
+        bfloat16 before their column sum (under
         ``kernels/dia.py:SPMM_BWD = "fused"``, on the chunk path and a
         hybrid residual): gradB gains about 1e-3 relative error, gradA
         stays exact.  Every other path is exact under either.
