@@ -1107,6 +1107,18 @@ def check_slab_kernel(label, indptr, cols, vals, B, slabs, dt_name,
     return err
 
 
+def peak_extra(fn):
+    """fn()'s result and the MiB it allocated above what was held before,
+    at its peak."""
+    import torch
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    res = fn()
+    torch.cuda.synchronize()
+    return res, (torch.cuda.max_memory_allocated() - base) / 2**20
+
+
 def grads_close(label, got, ref, what=("out", "gradA", "gradB")):
     for name, g, r in zip(what, got, ref):
         close(f"{label} {name}", g, r, "float32")
@@ -2704,9 +2716,309 @@ def phase_models(dev, card):
     return rec
 
 
+# phase 3g: the ELL engine, distributed solves, interop and explain
+ELL_PATTERNS = ("stencil", "random", "hybrid85")   # the three cfd2 patterns
+DIST_N = 131_072        # examples/distributed_stencil_solve.py:37-40
+DIST_OFFSETS = [-2048, -32, -1, 0, 1, 32, 2048]
+DIST_ST = dict(max_iter=400, rtol=1e-6)
+SCIPY_GRID = 256        # spsolve on the 256 x 256 5-point stencil
+# explain's kernel labels -> the launch counters
+LABEL_COUNTER = {"K1": "dia_spmm", "K2": "dia_sddmm", "K3": "gather",
+                 "K6": "chunk_spmm", "K7": "chunk_sddmm", "K8": "chunk_spmv",
+                 "K9": "tri_dia", "K10": "lse_rows", "K11": "lse_rows_bwd",
+                 "K12": "chunk_bwd_cols"}
+
+
+def launched_labels(launches):
+    return {k for k, c in LABEL_COUNTER.items() if launches.get(c)}
+
+
+def check_explain(seen):
+    """``explain``'s engine and kernels against the routes a run took:
+    ``seen`` holds (label, op, matrix, p, launches, routes) of runs whose
+    counters were set to 0 just before and read just after.  SpMM and
+    SDDMM: the kernels launched are the ones named; the triangular
+    solve: the forward's route; the LSE ops: the row route's kernels
+    launched, K10 and K11 only where it is the chunk route."""
+    from torchsparsegradutils_tpu_torch import explain
+    out = {}
+    for label, op, M, p, launches, routes in seen:
+        rep = explain(M, p=p)[op]
+        got = launched_labels(launches)
+        want = set(rep["kernels"])
+        if op in ("sparse_mm", "sddmm"):
+            ok = got == want
+        elif op == "triangular_solve":
+            ok = routes[:1] == [rep["engine"]] and want <= got
+        else:
+            ok = want <= got and ("K10" in got) == ("K10" in want)
+        print(f"  explain {label} {op}: engine {rep['engine']}, kernels "
+              f"{sorted(want)}; launched {sorted(got)}"
+              + (f", route {routes[:1]}" if routes else ""))
+        if not ok:
+            raise AssertionError(f"explain {label} {op}: {rep} does not "
+                                 f"match the run ({sorted(got)}, {routes})")
+        out[f"{label} {op}"] = rep["engine"]
+    return out
+
+
+def ell_cell(label, M, B, G, default_ms):
+    """``sparse_mm(..., backend="ell")`` fwd+bwd: K3 must launch and no
+    plain version run; values and gradients against the generic route;
+    the plan's K, padding and K-chunks, peak extra memory, wall, event
+    and device ms of a chained step beside the default engine's."""
+    import torch
+    from torchsparsegradutils_tpu_torch import sparse_mm
+    from torchsparsegradutils_tpu_torch.kernels.ell import (build_ell_plan,
+                                                            k_chunks)
+    n, m = M.shape
+    t1 = time.perf_counter()
+    rp = build_ell_plan(M.row_sa(), M.col_sa(), n, m)
+    cp = build_ell_plan(M.col_sa(), M.row_sa(), m, n)
+    plan_s = time.perf_counter() - t1
+    zero_counters()
+    got, mib = peak_extra(lambda: fwd_bwd(M, B, G, "ell"))
+    launches = read_counters(f"ell {label}", ("gather",), ("gather_plain",))
+    if any(PLAIN.values()):
+        raise AssertionError(f"ell {label}: plain versions ran: {PLAIN}")
+    err = {name: close(f"ell {label} {name} vs generic path", g_, r_,
+                       "float32")
+           for name, g_, r_ in zip(("out", "gradA", "gradB"), got,
+                                   fwd_bwd(M, B, G, "xla"))}
+    del got
+    step = chained_step(lambda v, b: sparse_mm(M.with_data(v), b,
+                                               backend="ell"),
+                        M.values, B, G)
+    t0 = time.perf_counter()
+    event = time_ms(step, reps=5, warmup=1)
+    wall = (time.perf_counter() - t0) * 1e3 / 6
+    rec = {"K": rp.K if rp else None, "K_T": cp.K if cp else None,
+           "padding": rp.K * n / M.nnz if rp else None,
+           "k_chunks": len(k_chunks(rp, B.shape[1])) if rp else 0,
+           "plan_host_s": plan_s, "fwd_bwd_peak_extra_mib": mib,
+           "fwd_bwd_event_ms": event, "fwd_bwd_wall_ms": wall,
+           "fwd_bwd_device_ms": device_ms(step, "", reps=3),
+           "default_fwd_bwd_event_ms": default_ms,
+           "launches": {k: v for k, v in launches.items() if v},
+           "max_abs_err": err}
+    profile_step(f"ell_{label}_fwd_bwd_step", step, steps=3, top=6)
+    print(f"  ell {label}: K {rec['K']} (transpose {rec['K_T']}), "
+          f"n·K/nnz {rec['padding']}, {rec['k_chunks']} K-chunks, peak "
+          f"extra {mib:.1f} MiB, fwd+bwd {event:.3f} ms event, "
+          f"{rec['fwd_bwd_device_ms']:.3f} ms device (default engine "
+          f"{default_ms:.3f} ms)")
+    torch.cuda.synchronize()
+    return rec
+
+
+def dist_solve(label, krylov, mv, mv_t, A, b, settings):
+    """One solve over the closures on the one-rank group: bitwise the
+    same closures' solve with no group; the residual in float64 by a
+    plain gather and ``index_add``; iterations, host reads, all-reduces,
+    K1 and K3 launches a loop step; wall and device ms."""
+    import torch
+    from torchsparsegradutils_tpu_torch.solvers import common
+    lsmr = krylov.__name__ == "lsmr"
+
+    def run(op, op_t):
+        if lsmr:
+            return krylov(op, b, rmatvec=op_t, settings=settings)
+        return krylov(op, b, settings=settings, diagnostics=True)
+    zero_counters()
+    reads, steps = common.host_read.reads, common.while_loop.steps
+    calls = common.group_sum.calls
+    x, it = run(mv, mv_t)
+    it = it if lsmr else it.iterations
+    launches = read_counters(f"distributed {label}",
+                             ("dia_spmm", "gather"))
+    rec = {"iterations": int(it),
+           "steps": common.while_loop.steps - steps,
+           "host_reads": common.host_read.reads - reads,
+           "all_reduces": common.group_sum.calls - calls,
+           "k1_launches": launches["dia_spmm"],
+           "k3_launches": launches["gather"]}
+    if any(PLAIN.values()):
+        raise AssertionError(f"distributed {label}: plain versions ran: "
+                             f"{PLAIN}")
+    ref = run(lambda v: mv(v), lambda v: mv_t(v))[0]
+    if not torch.equal(x, ref):
+        raise AssertionError(f"distributed {label}: not bitwise the solve "
+                             "without a group")
+    rec["rel_residual"] = rel(plain_mv(A, x), b.double())
+    if not rec["rel_residual"] <= SOLVE_RES:
+        raise AssertionError(f"distributed {label}: relative residual "
+                             f"{rec['rel_residual']:.3e} > {SOLVE_RES}")
+    per = max(rec["steps"], 1)
+    rec.update({k + "_per_step": rec[k] / per for k in (
+        "all_reduces", "k1_launches", "k3_launches")})
+    t = solve_timing(lambda: run(mv, mv_t), reps=1)
+    rec.update({k: t[k] for k in ("wall_ms", "event_ms", "device_ms",
+                                  "busy_share", "kernel_launches")})
+    print(f"  distributed {label}: {rec['iterations']} iterations "
+          f"({rec['steps']} steps), {rec['host_reads']} host reads, "
+          f"{rec['all_reduces_per_step']:.2f} all-reduces, "
+          f"{rec['k1_launches_per_step']:.2f} K1 a step, residual "
+          f"{rec['rel_residual']:.3e}, bitwise the plain solve, wall "
+          f"{rec['wall_ms']:.1f} ms, device {rec['device_ms']:.2f} ms")
+    return rec
+
+
+def phase_interop(dev, card, seen=None, mats=None):
+    """Phase 3g: the ELL engine, distributed Krylov solves, interop and
+    ``explain``, at full width in float32.
+
+    *ELL*: ``sparse_mm(backend="ell")`` fwd+bwd at p = 128 on the cfd2
+    stencil, random and hybrid85 patterns against the generic route (K3
+    launched, no plain version), with the plan's K and K-chunks, peak
+    memory and times beside the default engine's step.  *Distributed
+    solves* on a one-rank NCCL group: ``linear_cg`` over
+    ``matvec_closures`` of the example's 7-point operator (n = 131,072)
+    at ``max_iter=400, rtol=1e-6``, and the four drivers on phase 3e's
+    stencil SPD; each bitwise the solve without a group, residual in
+    float64 <= 1e-4.  *Interop*: ``sparse_solve_scipy`` (``spsolve`` on
+    the 256 x 256 5-point stencil, ``cg`` on the stencil SPD) fwd+bwd,
+    gradA on K2; ``sparse_mm_torch`` on the random pattern as a
+    ``torch.sparse_csr`` tensor, bitwise ``sparse_mm``.  *explain*
+    against the routes of ``seen`` (phase 3's runs), or of its own runs
+    of the three patterns when run alone.  ``mats``: phase 2's stencil,
+    random and hybrid85 matrices and its B and G, made here when run
+    alone.  Prints one ``interop`` JSON line."""
+    import torch
+    from torchsparsegradutils_tpu_torch import (make_spd_stencil, solvers,
+                                                sparse_mm)
+    from torchsparsegradutils_tpu_torch.interop import (sparse_mm_torch,
+                                                        sparse_solve_scipy)
+    from torchsparsegradutils_tpu_torch.parallel import matvec_closures
+    from torchsparsegradutils_tpu_torch.utils.random_sparse import (
+        hybrid_sparse, rand_sparse, stencil_sparse)
+
+    gen = torch.Generator().manual_seed(18)
+    t0 = time.perf_counter()
+    if mats is None:
+        mats = {
+            "stencil": stencil_sparse((N, N), STENCIL_OFFSETS, generator=gen,
+                                      device=dev),
+            "random": rand_sparse((N, N), NNZ_RANDOM, layout="csr",
+                                  generator=gen, device=dev),
+            "hybrid85": hybrid_sparse((N, N), STENCIL_OFFSETS, NNZ_HYBRID,
+                                      dia_coverage=0.85, generator=gen,
+                                      device=dev),
+            "B": torch.randn(N, P, generator=gen).to(dev),
+            "G": torch.randn(N, P, generator=gen).to(dev)}
+    B, G = mats["B"], mats["G"]
+    rec = {"card": card, "part_s": {}}
+
+    def part(name):
+        rec["part_s"][name] = time.perf_counter() - t0
+        print(f"  3g {name} done at {rec['part_s'][name]:.1f} s")
+    if seen is None:
+        seen = []
+        for label in ELL_PATTERNS:
+            M = mats[label]
+            zero_counters()
+            fwd_bwd(M, B, G, "auto")
+            seen.append((label, "sparse_mm", M, P, read_counters(
+                f"{label} auto", ()), []))
+    rec["explain"] = check_explain(seen)
+    part("explain")
+
+    print("  3g ELL: sparse_mm(backend='ell') fwd+bwd at p = 128")
+    rec["ell"] = {}
+    for label in ELL_PATTERNS:
+        M = mats[label]
+        default = time_ms(chained_step(lambda v, b, M=M: sparse_mm(
+            M.with_data(v), b), M.values, B, G), reps=10)
+        rec["ell"][label] = ell_cell(label, M, B, G, default)
+    part("ell")
+
+    print("  3g distributed solves on a one-rank NCCL group")
+    rec["distributed"] = {}
+    with one_rank_group(dev):
+        A7 = make_spd_stencil(DIST_N, DIST_OFFSETS, generator=gen,
+                              device=dev)
+        mv, mv_t = matvec_closures(A7)
+        b7 = torch.randn(DIST_N, 1, generator=gen).to(dev)
+        rec["distributed"]["example_cg"] = dist_solve(
+            "example 7-point cg", solvers.linear_cg, mv, mv_t, A7, b7,
+            solvers.LinearCGSettings(**DIST_ST))
+        del mv, mv_t
+        S = make_spd_stencil(N, SPD_OFFSETS, layout="csr", generator=gen,
+                             device=dev)
+        mv, mv_t = matvec_closures(S)
+        bs = torch.randn(N, 1, generator=gen).to(dev)
+        for name, krylov, st in (
+                ("cg", solvers.linear_cg, solvers.LinearCGSettings),
+                ("minres", solvers.minres, solvers.MINRESSettings),
+                ("bicgstab", solvers.bicgstab, solvers.BICGSTABSettings),
+                ("lsmr", solvers.lsmr, None)):
+            settings = (solvers.LSMRSettings() if st is None
+                        else st(**SOLVE_ST))
+            rec["distributed"][f"spd_{name}"] = dist_solve(
+                f"stencil SPD {name}", krylov, mv, mv_t, S, bs, settings)
+        del mv, mv_t
+    part("distributed")
+
+    print("  3g interop: SciPy host solves, the torch.sparse front end")
+    rec["scipy"] = {}
+    P5 = make_spd_stencil(SCIPY_GRID ** 2, [1, SCIPY_GRID], generator=gen,
+                          device=dev)
+    for label, method, M in (("spsolve 5-point", "spsolve", P5),
+                             ("cg stencil SPD", "cg", S)):
+        b = torch.randn(M.shape[0], generator=gen).to(dev)
+        v = M.values.clone().requires_grad_(True)
+        zero_counters()
+        t_s = time.perf_counter()
+        x = sparse_solve_scipy(M.with_data(v), b, method=method)
+        (x ** 2).sum().backward()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t_s) * 1e3
+        launches = read_counters(f"scipy {label}", ("dia_sddmm", "gather"))
+        res = rel(plain_mv(M, x), b.double())
+        g = 2 * x.detach().double()
+        gb = sparse_solve_scipy(M, (2 * x).detach(), method=method)
+        grad_b = rel(plain_mv(M, gb, True), g)
+        ref = -(gb.double()[M.rows_t()] * x.detach().double()[M.cols_t()])
+        err = close(f"scipy {label} gradA vs plain SDDMM f64", v.grad, ref,
+                    "float32")
+        if not (res <= SOLVE_RES and grad_b <= SOLVE_RES):
+            raise AssertionError(f"scipy {label}: residual {res:.3e}, "
+                                 f"Aᵀ gradB {grad_b:.3e} > {SOLVE_RES}")
+        rec["scipy"][label] = {
+            "n": M.shape[0], "nnz": M.nnz, "rel_residual": res,
+            "gradB_rel": grad_b, "gradA_max_abs_err": err,
+            "fwd_bwd_wall_ms": wall,
+            "launches": {k: c for k, c in launches.items() if c}}
+        print(f"  scipy {label}: residual {res:.3e}, Aᵀ gradB {grad_b:.3e}, "
+              f"fwd+bwd wall {wall:.1f} ms, launches "
+              f"{rec['scipy'][label]['launches']}")
+    R = mats["random"]
+    crow = torch.from_numpy(R.indptr_np().astype("int64")).to(dev)
+    out = []
+    for front in (True, False):
+        v = R.values.clone().requires_grad_(True)
+        b = B.clone().requires_grad_(True)
+        zero_counters()
+        y = (sparse_mm_torch(torch.sparse_csr_tensor(crow, R.cols_t(), v,
+                                                     R.shape), b)
+             if front else sparse_mm(R.with_data(v), b))
+        out.append((y, *torch.autograd.grad(y, (v, b), G)))
+        if front:
+            launches = read_counters("sparse_mm_torch random", CHUNK_KERNELS)
+    if not all(torch.equal(a, b_) for a, b_ in zip(*out)):
+        raise AssertionError("sparse_mm_torch: not bitwise sparse_mm")
+    rec["sparse_mm_torch"] = {"bitwise": True, "launches": {
+        k: c for k, c in launches.items() if c}}
+    print("  sparse_mm_torch random p=128: out, gradA, gradB bitwise "
+          "sparse_mm's")
+    part("interop")
+    print(f"card: {card}")
+    print(json.dumps({"interop": rec}))
+    return rec
+
+
 def phase_only(phase) -> int:
-    """``--solve`` / ``--models``: build the kernels and run one phase
-    (3e or 3f) alone."""
+    """``--solve`` / ``--models`` / ``--interop``: build the kernels and
+    run one phase (3e, 3f or 3g) alone."""
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2904,28 +3216,36 @@ def main() -> int:
     close("small random vs dense f64", sparse_mm(small_r, Bs[:400]),
           small_r.todense().double() @ Bs[:400].double(), "float32")
     launches = drive("stencil p=128", A, B, G, DIA_KERNELS)
-    drive("hybrid85 p=128", H, B, G,
-          DIA_KERNELS + ("chunk_spmm", "chunk_sddmm"))
+    launches_h = drive("hybrid85 p=128", H, B, G,
+                       DIA_KERNELS + ("chunk_spmm", "chunk_sddmm"))
     B16, G16 = B[:, :16].contiguous(), G[:, :16].contiguous()
-    drive("stencil p=16", A, B16, G16, DIA_KERNELS)
+    launches_16 = drive("stencil p=16", A, B16, G16, DIA_KERNELS)
     launches_r = drive("random p=128", R, B, G, CHUNK_KERNELS)
     B1, G1 = B[:, :1].contiguous(), G[:, :1].contiguous()
     launches_r1 = drive("random p=1", R, B1, G1,
                         ("chunk_spmv", "chunk_sddmm", "gather"))
+    # (label, op, matrix, p, launches, routes) for explain, phase 3g
+    seen = [("stencil p=128", "sparse_mm", A, P, launches, []),
+            ("hybrid85 p=128", "sparse_mm", H, P, launches_h, []),
+            ("stencil p=16", "sparse_mm", A, 16, launches_16, []),
+            ("random p=128", "sparse_mm", R, P, launches_r, []),
+            ("random p=1", "sparse_mm", R, 1, launches_r1, [])]
     if launches_r1["chunk_spmv"] != 2:       # A x, then Aᵀ g over plan.T
         raise AssertionError("random p=1: chunk_spmv launched "
                              f"{launches_r1['chunk_spmv']} times, not 2")
     C = torch.randn(R.nnz, generator=gen).to(dev)
     zero_counters()
     got = sddmm_fwd_bwd(R, G, B, C, "auto")
-    read_counters("random sddmm p=128", CHUNK_KERNELS)
+    seen.append(("random p=128", "sddmm", R, P, read_counters(
+        "random sddmm p=128", CHUNK_KERNELS), []))
     for name, g_, r_ in zip(("values", "gradX", "gradY"), got,
                             sddmm_fwd_bwd(R, G, B, C, "xla")):
         close(f"random sddmm {name} vs generic path", g_, r_, "float32")
     CA = torch.randn(A.nnz, generator=gen).to(dev)
     zero_counters()
     got = sddmm_fwd_bwd(A, G, B, CA, "auto")
-    read_counters("stencil sddmm p=128", DIA_KERNELS)
+    seen.append(("stencil p=128", "sddmm", A, P, read_counters(
+        "stencil sddmm p=128", DIA_KERNELS), []))
     for name, g_, r_ in zip(("values", "gradX", "gradY"), got,
                             sddmm_fwd_bwd(A, G, B, CA, "xla")):
         close(f"stencil sddmm {name} vs generic path", g_, r_, "float32")
@@ -2952,8 +3272,11 @@ def main() -> int:
                           upper=upper != tr), "float32")
     GT = torch.randn(N, P, generator=gen).to(dev)
     TB2, GT2 = TB[:, :2].contiguous(), GT[:, :2].contiguous()
-    launches_t, _ = drive_tri("tri-stencil p=128", T, TB, GT, TRI_KERNELS,
-                              ref_algorithm="block", upper=False)
+    launches_t, routes_t = drive_tri("tri-stencil p=128", T, TB, GT,
+                                     TRI_KERNELS, ref_algorithm="block",
+                                     upper=False)
+    seen.append(("tri-stencil p=128", "triangular_solve", T, P, launches_t,
+                 routes_t))
     drive_tri("tri-stencil p=2", T, TB2, GT2, TRI_KERNELS,
               ref_algorithm="block", upper=False)
     Tu = stencil_sparse((N, N), [-o for o in TRI_OFFSETS],
@@ -2971,6 +3294,8 @@ def main() -> int:
     other = "wave" if routes_tr[0] == "block" else "block"
     drive_tri("tri-random p=2 (again)", TR, TB2, GT2, TRI_RANDOM_KERNELS,
               ref_algorithm=other, upper=False)
+    seen.append(("tri-random p=2", "triangular_solve", TR, 2, launches_tr,
+                 routes_tr))
 
     print(f"phase 3c: sparse_logsumexp / sparse_bidir_logsumexp fwd+bwd "
           f"and the fused chunk backward ({time.perf_counter() - t0:.1f} "
@@ -2984,19 +3309,12 @@ def main() -> int:
                       "dense f64",
                       sparse_logsumexp(small_r, dim, include_zeros=iz),
                       torch.logsumexp(dd_, dim), "float32", (1e-5, 1e-6))
-    drive_lse("lse-stencil", A, ("gather",), LSE_CHUNK)
-    drive_lse("lse-random", R, ("gather",), LSE_CHUNK)
+    seen += [("lse-stencil", "sparse_logsumexp", A, P, drive_lse(
+        "lse-stencil", A, ("gather",), LSE_CHUNK), []),
+        ("lse-random", "sparse_logsumexp", R, P, drive_lse(
+            "lse-random", R, ("gather",), LSE_CHUNK), [])]
     launches_lse = drive_lse("lse-skewed", S, LSE_CHUNK + ("gather",), ())
-    def peak_extra(fn):
-        """fn()'s result and the MiB it allocated above what was held
-        before, at its peak."""
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        base = torch.cuda.memory_allocated()
-        res = fn()
-        torch.cuda.synchronize()
-        return res, (torch.cuda.max_memory_allocated() - base) / 2**20
-
+    seen.append(("lse-skewed", "sparse_logsumexp", S, P, launches_lse, []))
     split, mem_split = peak_extra(lambda: fwd_bwd(R, B, G, "auto"))
     peak_mib = {"split": mem_split}
     dia.SPMM_BWD = "fused"
@@ -3040,6 +3358,11 @@ def main() -> int:
     print(f"phase 3f: the sparse multivariate normals at the flagship's "
           f"width ({time.perf_counter() - t0:.1f} s in)")
     phase_models(dev, card)
+    print(f"phase 3g: the ELL engine, distributed solves, interop and "
+          f"explain ({time.perf_counter() - t0:.1f} s in)")
+    phase_interop(dev, card, seen, {"stencil": A, "random": R,
+                                    "hybrid85": H, "B": B, "G": G})
+    del seen
 
     # ---- phase 4: timing ---------------------------------------------------
     print(f"phase 4: timing ({time.perf_counter() - t0:.1f} s in)")
@@ -3400,9 +3723,10 @@ if __name__ == "__main__":
     mode = {"--k1": "k1", "--k2": "k2", "--k6": "k6", "--k7": "k7",
             "--k8": "k8", "--k9": "k9", "--k10": "k10"}.get(
                 " ".join(sys.argv[1:]))
-    if sys.argv[1:] in (["--solve"], ["--models"]):
-        rc = phase_only(phase_solvers if sys.argv[1] == "--solve"
-                        else phase_models)
+    only = {"--solve": phase_solvers, "--models": phase_models,
+            "--interop": phase_interop}
+    if len(sys.argv) == 2 and sys.argv[1] in only:
+        rc = phase_only(only[sys.argv[1]])
     else:
         rc = compare(mode) if mode else main()
     print(f"chip_smoke: {time.perf_counter() - t0:.1f} s", file=sys.stderr)

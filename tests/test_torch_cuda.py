@@ -1110,3 +1110,174 @@ def test_coo_to_csr_on_card_permutes_through_the_gather(dev, monkeypatch):
     monkeypatch.undo()
     for x, ref in zip(got, run("cpu")):
         assert torch.equal(x.detach().cpu(), ref.detach())
+
+
+# --------------------------------------------------------------------------
+# the ELL engine, distributed solves, explain and interop on the card
+# --------------------------------------------------------------------------
+
+# explain's kernel labels -> the wrappers whose ``launches`` count them
+LABELS = {"K1": (dia, "spmm_core"), "K2": (dia, "sddmm_core"),
+          "K3": (wg, "window_gather"), "K6": (cs, "chunk_spmm"),
+          "K7": (cs, "chunk_sddmm"), "K8": (cs, "chunk_spmv"),
+          "K9": (dia_tri, "tri_dia_core")}
+
+
+def _launched(before):
+    torch.cuda.synchronize()
+    return {k for k, (mod, name) in LABELS.items()
+            if getattr(mod, name).launches > before[k]}
+
+
+def _launch_counts():
+    return {k: getattr(mod, name).launches for k, (mod, name) in
+            LABELS.items()}
+
+
+@pytest.mark.parametrize("kind", ["stencil", "random", "skewed"])
+def test_ell_on_card_launches_the_gather_and_matches_cpu(dev, monkeypatch,
+                                                         kind):
+    """``backend="ell"``: K3 launches for the value relayouts, no plain
+    version runs, and the values and gradients are the CPU's."""
+    plain = []
+    real = wg.window_gather_plain
+    monkeypatch.setattr(wg, "window_gather_plain",
+                        lambda *a: plain.append(1) or real(*a))
+    g = torch.Generator().manual_seed(31)
+    if kind == "stencil":
+        A = stencil_sparse((3000, 3000), [-50, -1, 0, 1, 50], generator=g,
+                           device="cpu")
+    elif kind == "random":
+        A = rand_sparse((3000, 2500), 40_000, layout="csr", generator=g,
+                        device="cpu")
+    else:       # a hub row: the row plan is refused, the column plan kept
+        rows = np.concatenate([np.zeros(2000, np.int64), np.arange(3000)])
+        cols = np.concatenate([np.arange(2000), np.arange(3000) % 2500])
+        A = SparseCOO(rows, cols, torch.randn(5000, generator=g),
+                      (3000, 2500))
+    B = torch.randn(A.shape[1], 33, generator=g)
+    G = torch.randn(A.shape[0], 33, generator=g)
+    out = []
+    for d in ("cpu", dev):
+        plain.clear()           # the CPU reference runs the plain version
+        v = A.values.to(d).requires_grad_(True)
+        b = B.to(d).requires_grad_(True)
+        before = wg.window_gather.launches
+        y = sparse_mm(A.with_data(v), b, backend="ell")
+        gv, gb = torch.autograd.grad(y, (v, b), G.to(d))
+        out.append((y, gv, gb))
+        if d == dev:
+            torch.cuda.synchronize()
+            # the grids of the forward and gradB and gradA's way back;
+            # skewed: only gradB's, over the column plan
+            assert wg.window_gather.launches - before == (
+                1 if kind == "skewed" else 3)
+    assert not plain
+    for got, ref in zip(out[1], out[0]):
+        close(got, ref, torch.float32)
+
+
+@pytest.mark.parametrize("solver", ["linear_cg", "minres", "bicgstab",
+                                    "lsmr"])
+def test_distributed_solve_on_one_nccl_rank_is_bitwise_plain(dev, tmp_path,
+                                                             solver):
+    """``matvec_closures`` on a one-rank NCCL group: each driver reads the
+    closure's group and all-reduces its column sums, and its solve is
+    bitwise the same closures' solve without a group."""
+    import torch.distributed as dist
+    from torchsparsegradutils_tpu_torch.parallel import matvec_closures
+    from torchsparsegradutils_tpu_torch.solvers.common import group_sum
+    torch.cuda.set_device(torch.cuda.current_device())
+    dist.init_process_group("nccl", store=dist.FileStore(
+        str(tmp_path / "store"), 1), rank=0, world_size=1)
+    try:
+        A = make_spd_stencil(8192, [-64, -1, 0, 1, 64],
+                             generator=torch.Generator().manual_seed(32),
+                             device=dev)
+        mv, mv_t = matvec_closures(A)
+        rhs = torch.randn(8192, 2, generator=torch.Generator().manual_seed(
+            33)).to(dev)
+        fn = getattr(ps, solver)
+        kw = {"rmatvec": mv_t} if solver == "lsmr" else {}
+        plain = ({"rmatvec": lambda x: mv_t(x)} if solver == "lsmr" else {})
+        calls = group_sum.calls
+        got = fn(mv, rhs, **kw)
+        assert group_sum.calls > calls
+        ref = fn(lambda x: mv(x), rhs, **plain)
+        got, ref = (got[0], ref[0]) if solver == "lsmr" else (got, ref)
+        assert torch.equal(got, ref)
+        res = (sparse_mm(A, got) - rhs).norm() / rhs.norm()
+        assert res.item() < 1e-4
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("kind,p", [("stencil", 16), ("random", 16),
+                                    ("random", 1), ("hybrid", 16),
+                                    ("tri", 2)])
+def test_explain_names_the_kernels_the_route_launches(dev, kind, p):
+    from torchsparsegradutils_tpu_torch import explain
+    g = torch.Generator().manual_seed(34)
+    if kind == "stencil":
+        A = stencil_sparse((5000, 5000), [-70, -1, 0, 1, 70], generator=g,
+                           device=dev)
+    elif kind == "random":
+        A = rand_sparse((5000, 5000), 60_000, layout="csr", generator=g,
+                        device=dev)
+    elif kind == "hybrid":
+        A = hybrid_sparse((5000, 5000), [-70, -1, 0, 1, 70], 40_000,
+                          dia_coverage=0.85, generator=g, device=dev)
+    else:
+        A = stencil_sparse((5000, 5000), [-70, -1, 0],
+                           well_conditioned=True, generator=g, device=dev)
+    rep = explain(A, p=p)
+    B = torch.randn(5000, p, generator=g).to(dev)
+    for op, run in (("sparse_mm", lambda v, b: sparse_mm(A.with_data(v), b)),
+                    ("sddmm", lambda v, b: sddmm(A, b, b).values)):
+        v = A.values.clone().requires_grad_(True)
+        b = B.clone().requires_grad_(True)
+        before = _launch_counts()
+        run(v, b).sum().backward()
+        assert _launched(before) == set(rep[op]["kernels"]), (op, rep[op])
+    if kind == "tri":
+        before = _launch_counts()
+        sparse_triangular_solve(A, B)
+        assert rep["triangular_solve"]["engine"] == "dia"
+        assert {"K9", "K3"} <= _launched(before)
+
+
+def test_torch_sparse_front_end_on_card_is_bitwise_sparse_mm(dev):
+    from torchsparsegradutils_tpu_torch.interop import (from_torch_csr,
+                                                        sparse_mm_torch)
+    A = rand_sparse((3000, 2500), 40_000, layout="csr",
+                    generator=torch.Generator().manual_seed(35), device=dev)
+    B = torch.randn(2500, 33, device=dev)
+    out = []
+    for front in (True, False):
+        v = A.values.clone().requires_grad_(True)
+        b = B.clone().requires_grad_(True)
+        crow = torch.from_numpy(A.indptr_np().astype(np.int64)).to(dev)
+        t = torch.sparse_csr_tensor(crow, A.cols_t(), v, A.shape)
+        y = sparse_mm_torch(t, b) if front else sparse_mm(from_torch_csr(t),
+                                                          b)
+        gv, gb = torch.autograd.grad(y, (v, b), torch.ones_like(y))
+        out.append((y, gv, gb))
+    assert all(torch.equal(a, b_) for a, b_ in zip(*out))
+
+
+@pytest.mark.parametrize("method", ["spsolve", "cg"])
+def test_scipy_solve_on_card_runs_grad_a_on_the_kernels(dev, method):
+    from torchsparsegradutils_tpu_torch.interop import sparse_solve_scipy
+    A = make_spd_stencil(4000, [-40, -1, 0, 1, 40],
+                         generator=torch.Generator().manual_seed(36),
+                         device=dev)
+    b = torch.randn(4000, device=dev)
+    v = A.values.clone().requires_grad_(True)
+    before = _launch_counts()
+    x = sparse_solve_scipy(A.with_data(v), b, method=method)
+    (x ** 2).sum().backward()
+    assert x.device == b.device and {"K2", "K3"} <= _launched(before)
+    res = (sparse_mm(A, x[:, None])[:, 0] - b).norm() / b.norm()
+    assert res.item() < 1e-4
+    gb = sparse_solve_scipy(A, 2 * x.detach(), method=method)
+    close(v.grad, -(gb[A.rows_t()] * x.detach()[A.cols_t()]), torch.float32)

@@ -41,7 +41,7 @@ from torchsparsegradutils_tpu_torch.parallel import (
     sharding, training)
 from torchsparsegradutils_tpu_torch.parallel.dia_sharded import ShardedDia
 from torchsparsegradutils_tpu_torch.utils.random_sparse import (
-    rand_sparse, stencil_sparse)
+    make_spd_stencil, rand_sparse, stencil_sparse)
 
 F32 = dict(rtol=1e-4, atol=1e-5)
 F64 = dict(rtol=1e-10, atol=1e-10)
@@ -91,6 +91,12 @@ DIA = {
         (512, 512), [-8, -1, 0, 1, 8], generator=_gen(15), device="cpu")),
         B=_np((512, 16), 16), G=_np((512, 16), 17)),
 }
+# tests/test_parallel.py:245's distributed CG: the SPD stencil of n = 512
+# over offsets -8, -1, 0, 1, 8, two right-hand sides
+SOLVES = dict(A=to_arrays(make_spd_stencil(512, [-8, -1, 0, 1, 8],
+                                           generator=_gen(21),
+                                           device="cpu")),
+              rhs=_np((512, 2), 22))
 DIA_ERRORS = (to_arrays(stencil_sparse((64, 64), [-32, 0, 32],
                                        generator=_gen(18), device="cpu")),
               to_arrays(rand_sparse((64, 64), 400, layout="csr",
@@ -245,7 +251,7 @@ def ranks(tmp_path_factory):
     # the inputs go by file: a large argument would reach the ranks one
     # after another, each once the one before has imported torch
     torch.save({"chunk": CHUNK, "shard": SHARD, "dia": DIA, "train": TRAIN,
-                "dia_errors": DIA_ERRORS}, d / "spec.pt")
+                "dia_errors": DIA_ERRORS, "solves": SOLVES}, d / "spec.pt")
     mp.start_processes(torch_parallel_worker.run,
                        args=(WORLD, str(d / "store"), str(d)),
                        nprocs=WORLD, start_method="spawn")
@@ -455,6 +461,97 @@ def test_ranks_dia_matvec_closures(ranks, name):
     close(_stack_slabs(res, "mv", n), (A @ x).numpy())
     close(_stack_slabs(res, "mv_t", n), (A.T @ x).numpy())
     close(_stack_slabs(res, "mv_1d", n), (A @ x[:, 0]).numpy())
+
+
+# --------------------------------------------------------------------------
+# distributed Krylov solves over matvec_closures
+# --------------------------------------------------------------------------
+
+@functools.lru_cache(maxsize=None)
+def jax_distributed_cg():
+    """JAX's distributed CG (tests/test_parallel.py:245) on SOLVES over a
+    4-device mesh: ``linear_cg(mv, rhs)`` of ``matvec_closures``."""
+    from torchsparsegradutils_tpu.solvers import linear_cg
+    mv, _ = jpar.matvec_closures(jax_of(SOLVES["A"]), mesh1d(WORLD), "x")
+    return np.asarray(jax.jit(lambda r: linear_cg(mv, r))(
+        jnp.asarray(SOLVES["rhs"])))
+
+
+def _single_device(name):
+    """The same solve on the whole matrix in this process."""
+    from torchsparsegradutils_tpu_torch import solvers as ps
+    A = port(SOLVES["A"])
+    rhs = torch.from_numpy(SOLVES["rhs"])
+    if name == "lsmr":
+        return ps.lsmr(A, rhs)
+    if name == "cg_vec":
+        x, info = ps.linear_cg(A, rhs[:, 0].contiguous(), diagnostics=True)
+        return x, info.iterations
+    x, info = getattr(ps, {"cg": "linear_cg"}.get(name, name))(
+        A, rhs, diagnostics=True)
+    return x, info.iterations
+
+
+@pytest.mark.parametrize("name", ["cg", "cg_vec", "minres", "bicgstab",
+                                  "lsmr"])
+def test_ranks_distributed_solve_matches_single_device(ranks, name):
+    """Each driver over the halo-exchange closures on 4 ranks: every rank
+    took the same iterations and summed its reductions over the group,
+    and the stacked slabs are the single-device solve (a rank-local
+    reduction, as before the solvers took a group, gives each rank its
+    own step lengths and a wrong answer)."""
+    res = [r["solves"][name] for r in ranks]
+    assert all("error" not in r for r in res), [r.get("error") for r in res]
+    its = {r["iterations"] for r in res}
+    assert len(its) == 1, its
+    assert len({r["all_reduces"] for r in res}) == 1
+    assert res[0]["all_reduces"] >= its.pop()
+    n = SOLVES["A"][4][0]
+    x = _stack_slabs(res, "x", n)
+    ref, _ = _single_device(name)
+    close(x, ref.numpy(), F32)
+    A = port(SOLVES["A"]).todense().double()
+    b = torch.from_numpy(SOLVES["rhs"]).double()
+    b = b[:, 0] if name == "cg_vec" else b
+    assert ((A @ x.double() - b).norm() / b.norm()).item() < 1e-4
+
+
+def test_ranks_distributed_cg_matches_jax(ranks):
+    res = [r["solves"]["cg"] for r in ranks]
+    n = SOLVES["A"][4][0]
+    close(_stack_slabs(res, "x", n), jax_distributed_cg(), F32)
+
+
+def test_one_rank_group_solve_is_bitwise_the_plain_solve(tmp_path):
+    """On a one-rank group the reductions' all-reduce is the identity: the
+    closures' solve is bitwise the same closures' solve with no group."""
+    import torch.distributed as dist
+    from torchsparsegradutils_tpu_torch.parallel import matvec_closures
+    from torchsparsegradutils_tpu_torch import solvers as ps
+    dist.init_process_group("gloo", store=dist.FileStore(
+        str(tmp_path / "store"), 1), rank=0, world_size=1)
+    try:
+        A = port(SOLVES["A"])
+        mv, mv_t = matvec_closures(A)
+        assert mv.group is dist.group.WORLD and mv_t.group is mv.group
+        rhs = torch.from_numpy(SOLVES["rhs"])
+        for solve in (ps.linear_cg, ps.minres, ps.bicgstab):
+            got = solve(mv, rhs)
+            assert torch.equal(got, solve(lambda x: mv(x), rhs))
+        got, it = ps.lsmr(mv, rhs, rmatvec=mv_t)
+        ref, it0 = ps.lsmr(lambda x: mv(x), rhs, rmatvec=lambda x: mv_t(x))
+        assert torch.equal(got, ref) and int(it) == int(it0)
+    finally:
+        dist.destroy_process_group()
+
+
+def test_distributed_stencil_example_on_the_cpu():
+    """``examples/distributed_stencil_solve.py``'s port on a one-rank
+    gloo group, cut to n = 8,192 (the 7-point offsets reach 2,048)."""
+    from torchsparsegradutils_tpu_torch.examples import (
+        distributed_stencil_solve as ex)
+    assert ex.OFFSETS == [-2048, -32, -1, 0, 1, 32, 2048] and ex.N == 131_072
+    assert ex.main(["--cpu", "--n", "8192"]) < 1e-4
 
 
 # --------------------------------------------------------------------------

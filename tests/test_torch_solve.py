@@ -299,3 +299,33 @@ def test_dtype_mismatch_raises_jax_message(enable_x64, monkeypatch, route,
         with warnings.catch_warnings():
             warnings.simplefilter("ignore")
             fn(A, torch.ones((A.shape[0], 2), dtype=torch.float32))
+
+
+def test_conductivity_example_operator_and_gradient():
+    """``examples/fit_conductivity_poisson.py``'s port: the same pattern
+    and operator values as the JAX example's at a field θ, and the loss
+    gradient of the implicit solve against a dense solve's (the
+    example's CG at rtol 1e-8, float32; the JAX solver tests' 1e-2 /
+    1e-3)."""
+    import examples.fit_conductivity_poisson as jex
+    from torchsparsegradutils_tpu_torch.examples import (
+        fit_conductivity_poisson as ex)
+    for name in ("ROWS", "COLS", "INDPTR", "IS_DIAG"):
+        assert np.array_equal(getattr(ex, name), getattr(jex, name))
+    theta = torch.from_numpy(np.random.default_rng(3).standard_normal(
+        ex.N).astype(np.float32) * 0.3)
+    np.testing.assert_allclose(
+        ex.operator(theta).values.numpy(),
+        np.asarray(jex.operator(jnp.asarray(theta.numpy())).data),
+        rtol=1e-6, atol=1e-6)
+    f = torch.from_numpy(np.random.default_rng(4).standard_normal(
+        ex.N).astype(np.float32))
+    y_obs = ex.solve(ex.theta_true("cpu"), f).detach()
+    t = theta.clone().requires_grad_(True)
+    ex.loss_fn(t, f, y_obs).backward()
+    td = theta.double().clone().requires_grad_(True)
+    Ad = ex.operator(td).todense()
+    (((torch.linalg.solve(Ad, f.double()) - y_obs.double()) ** 2).sum()
+     * 1e2).backward()
+    torch.testing.assert_close(t.grad.double(), td.grad, rtol=1e-2,
+                               atol=1e-3)

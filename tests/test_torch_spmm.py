@@ -273,11 +273,14 @@ def test_backend_contracts():
     torch.testing.assert_close(sparse_mm(S, torch.ones(64, 4),
                                          backend="pallas"),
                                sparse_mm(S, torch.ones(64, 4)))
-    ell_msg = "ROADMAP.md, queue 1: ELL engine"
-    with pytest.raises(NotImplementedError, match=re.escape(ell_msg)):
-        sparse_mm(S, torch.ones(64, 4), backend="ell")
-    with pytest.raises(NotImplementedError, match=re.escape(ell_msg)):
-        sddmm(S, torch.ones(64, 4), torch.ones(64, 4), backend="ell")
+    # "ell" runs the ELL engine, on any pattern: the same values
+    X = torch.from_numpy(RNG.standard_normal((64, 4)).astype(np.float32))
+    for M in (S, R):
+        torch.testing.assert_close(sparse_mm(M, X, backend="ell"),
+                                   sparse_mm(M, X, backend="xla"), **F32)
+        torch.testing.assert_close(sddmm(M, X, X, backend="ell").values,
+                                   sddmm(M, X, X, backend="xla").values,
+                                   **F32)
     with pytest.raises(ValueError, match="unknown backend"):
         sparse_mm(S, torch.ones(64, 4), backend="cuda")
     with pytest.raises(ValueError, match="grad_precision"):

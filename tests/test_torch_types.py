@@ -250,6 +250,10 @@ def test_build_key_follows_sources():
     "torchsparsegradutils_tpu_torch.solvers",
     "torchsparsegradutils_tpu_torch.ops.solve",
     "torchsparsegradutils_tpu_torch.ops.lstsq",
+    "torchsparsegradutils_tpu_torch.kernels.ell",
+    "torchsparsegradutils_tpu_torch.kernels.explain",
+    "torchsparsegradutils_tpu_torch.interop.torch_bridge",
+    "torchsparsegradutils_tpu_torch.interop.scipy_solve",
 ])
 def test_docstring_examples(module_name):
     import doctest

@@ -9,6 +9,7 @@ module imports neither JAX nor the test file, so the spawned ranks do not
 load JAX.
 """
 
+import datetime
 import os
 
 import numpy as np
@@ -20,6 +21,9 @@ from torchsparsegradutils_tpu_torch import from_arrays, params_from_arrays
 from torchsparsegradutils_tpu_torch.parallel import (
     build_sharded_chunk_plan, make_model, make_train_step, matvec_closures,
     shard_rows, sharded_chunk_spmm, sharded_dia_spmm, sharded_sparse_mm)
+from torchsparsegradutils_tpu_torch.solvers import (bicgstab, linear_cg,
+                                                     lsmr, minres)
+from torchsparsegradutils_tpu_torch.solvers.common import group_sum
 
 
 def _matrix(arrays, dtype=None):
@@ -88,6 +92,39 @@ def _dia(case, rank, group):
             "mv": mv(x), "mv_t": mv_t(x), "mv_1d": mv(x[:, 0].contiguous())}
 
 
+def _solves(case, rank, group):
+    """The four drivers over ``matvec_closures`` on this rank's slab of
+    the right-hand side: each rank's slab of x and its iteration count,
+    or the error a solve raised (a rank-local solve on the parent would
+    hang in the halo exchange until the group's timeout)."""
+    A = _matrix(case["A"])
+    mv, mv_t = matvec_closures(A, group)
+    rps, n = mv.rows_per_shard, A.shape[0]
+    rhs = F.pad(torch.from_numpy(case["rhs"]), (0, 0, 0, mv.n_padded - n))[
+        rank * rps:(rank + 1) * rps].contiguous()
+    runs = {
+        "cg": lambda: linear_cg(mv, rhs, diagnostics=True),
+        "cg_vec": lambda: linear_cg(mv, rhs[:, 0].contiguous(),
+                                    diagnostics=True),
+        "minres": lambda: minres(mv, rhs, diagnostics=True),
+        "bicgstab": lambda: bicgstab(lambda x: mv(x), rhs, diagnostics=True,
+                                     group=group),
+        "lsmr": lambda: lsmr(mv, rhs, rmatvec=mv_t),
+    }
+    out = {}
+    for name, run in runs.items():
+        before = group_sum.calls
+        try:
+            x, info = run()
+        except Exception as exc:  # noqa: BLE001 - saved for the parent
+            out[name] = {"error": repr(exc)}
+            continue
+        it = info if name == "lsmr" else info.iterations
+        out[name] = {"x": x, "iterations": int(it),
+                     "all_reduces": group_sum.calls - before}
+    return out
+
+
 def _train(case):
     enc = make_model(case["volume"], radius=case["radius"])
     step = make_train_step(enc, 2, 2, lr=case["lr"])
@@ -107,7 +144,8 @@ def run(rank, world, store_path, out_dir):
     torch.set_num_threads(1)
     spec = torch.load(os.path.join(out_dir, "spec.pt"), weights_only=False)
     store = dist.FileStore(store_path, world)
-    dist.init_process_group("gloo", store=store, rank=rank, world_size=world)
+    dist.init_process_group("gloo", store=store, rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=60))
     try:
         group = dist.new_group(list(range(world)))
         res = {"chunk": {k: _chunk(c, rank) for k, c in spec["chunk"].items()},
@@ -128,6 +166,7 @@ def run(rank, world, store_path, out_dir):
             "dia_nondia": _error(lambda: sharded_dia_spmm(nondia, group)),
             "train_mesh": _error(lambda: make_train_step(enc, 3, 1)),
         }
+        res["solves"] = _solves(spec["solves"], rank, group)
         torch.save(res, os.path.join(out_dir, f"rank{rank}.pt"))
     finally:
         dist.destroy_process_group()

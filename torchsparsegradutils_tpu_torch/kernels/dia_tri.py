@@ -46,8 +46,8 @@ import torch.nn.functional as F
 
 from . import _build
 
-__all__ = ["tri_dia_core", "tri_dia_core_plain", "tri_dia_inv", "SPAN_CAP",
-           "NB"]
+__all__ = ["tri_dia_core", "tri_dia_core_plain", "tri_dia_inv",
+           "tri_dia_takes", "SPAN_CAP", "NB"]
 
 SPAN_CAP = 8192      # widest band the JAX kernel's rolling window takes
 NB = 256             # row-block size of the plain version (the JAX kernel's)
@@ -162,6 +162,15 @@ def tri_dia_inv(offsets, grid: torch.Tensor, *, unit: bool) -> torch.Tensor:
 tri_dia_inv.launches = 0
 
 
+def tri_dia_takes(offsets, dtype: torch.dtype) -> bool:
+    """Whether :func:`tri_dia_core` solves over these (lower-form)
+    offsets in this dtype: a band of at most ``SPAN_CAP`` rows, and
+    float32, bfloat16 or float64."""
+    offsets = np.asarray(offsets, np.int64)
+    span = int(-offsets.min()) if (offsets < 0).any() else 0
+    return span <= SPAN_CAP and dtype in _DTYPES
+
+
 def tri_dia_core(offsets, grid: torch.Tensor, B: torch.Tensor, *,
                  unit: bool) -> Optional[torch.Tensor]:
     """Solve lower-triangular ``A x = B``, A given as the ``(n, K)`` grid
@@ -175,8 +184,7 @@ def tri_dia_core(offsets, grid: torch.Tensor, B: torch.Tensor, *,
     the block walk) and raise on what it does not take.
     """
     offsets = np.asarray(offsets, np.int64)
-    span = int(-offsets.min()) if (offsets < 0).any() else 0
-    if span > SPAN_CAP or B.dtype not in _DTYPES:
+    if not tri_dia_takes(offsets, B.dtype):
         return None
     if grid.device.type == "cpu" and B.device.type == "cpu":
         return tri_dia_core_plain(offsets, grid, B, unit=unit)

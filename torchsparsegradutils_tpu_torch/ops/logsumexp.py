@@ -114,18 +114,23 @@ def _check_backend(backend: str):
                          "'dia', 'pallas' or 'xla'")
 
 
-def _dia_lse_plan(A, backend: str):
-    """(plan, grid) of the DIA LSE, or None out of scope: filled once so
-    that the bidirectional op feeds both directions from one grid."""
+def _dia_lse_gate(A, backend: str):
+    """The DIA plan of the DIA LSE route (a pure DIA 2-D float pattern),
+    or None out of scope."""
     if backend not in ("auto", "dia") or A.dtype not in _FLOATS:
         return None
     rs, cs = A.row_sa(), A.col_sa()
     if rs.arr.ndim != 1:
         return None
     dia = build_dia_plan(rs, cs, *A.mat_shape)
-    if dia is None or dia.is_hybrid:
-        return None
-    return dia, values_to_grid(dia, A.values)
+    return None if dia is None or dia.is_hybrid else dia
+
+
+def _dia_lse_plan(A, backend: str):
+    """(plan, grid) of the DIA LSE, or None out of scope: filled once so
+    that the bidirectional op feeds both directions from one grid."""
+    dia = _dia_lse_gate(A, backend)
+    return None if dia is None else (dia, values_to_grid(dia, A.values))
 
 
 def _dia_valid(dia, device, over_cols: bool):

@@ -20,8 +20,12 @@ Dispatch, per 2-D pattern (the JAX package's ``_spmm_forward`` and
 * ``"xla"``, and patterns with no plan (the chunk engine needs rows in
   sorted order): the JAX package's generic gather + segment-sum branch,
   in PyTorch ``index_select`` + ``index_add``.
-* ``"ell"``: the ELL engine is not ported yet; it raises
-  ``NotImplementedError``.
+* ``"ell"``: the ELL engine (``kernels/ell.py``), on every device: the
+  forward over the row-ELL plan, ``sddmm`` the ELL SDDMM, and in the
+  backward gradA the ELL SDDMM and gradB the column-ELL plan's SpMM.  A
+  direction with no plan (an empty or skewed pattern) takes the generic
+  branch there, and per-element batched patterns take it throughout,
+  as in the JAX package.  The value relayouts run the K3 gather.
 
 The JAX package gates the chunk engine at p >= 32 and f32/bf16, because
 its kernels pad p to 128 lanes and compute in f32; the CUDA kernels pad
@@ -54,21 +58,16 @@ import torch
 from ..kernels.chunk_spmm import ChunkSddmm, ChunkSpmm, build_chunk_plan
 from ..kernels.dia import (build_dia_plan, chunk_bwd_fused_arg, dia_sddmm,
                            dia_spmm)
+from ..kernels.ell import EllOperator, EllSddmm, EllSpmm
 from ..types import SparseCOO, SparseCSR, is_sparse
 
 __all__ = ["sparse_mm", "sddmm"]
 
-_NOT_PORTED = ("backend='ell' needs the ELL engine (kernels/ell.py), which "
-               "is not ported yet (ROADMAP.md, queue 1: ELL engine); "
-               "use backend='auto', 'dia', 'pallas' or 'xla'")
-
 
 def _check_backend(backend: str):
-    if backend == "ell":
-        raise NotImplementedError(_NOT_PORTED)
-    if backend not in ("auto", "dia", "pallas", "xla"):
+    if backend not in ("auto", "dia", "ell", "pallas", "xla"):
         raise ValueError(f"unknown backend {backend!r}; expected 'auto', "
-                         "'dia', 'pallas' or 'xla'")
+                         "'dia', 'ell', 'pallas' or 'xla'")
 
 
 def _dia_plan(A, backend: str):
@@ -115,6 +114,8 @@ def _fallback_sddmm(rows, cols, X, Y):
 
 
 def _spmm_2d(backend, A, B, grad_precision="exact"):
+    if backend == "ell":
+        return EllSpmm.apply(EllOperator.of(A), A.values, B)
     plan = _dia_plan(A, backend)
     fused = chunk_bwd_fused_arg(grad_precision)
     if plan is not None:
@@ -126,6 +127,8 @@ def _spmm_2d(backend, A, B, grad_precision="exact"):
 
 
 def _sddmm_2d(backend, A, X, Y):
+    if backend == "ell":
+        return EllSddmm.apply(EllOperator.of(A), X, Y)
     plan = _dia_plan(A, backend)
     if plan is not None:
         return dia_sddmm(plan, X, Y)
@@ -182,9 +185,8 @@ def sparse_mm(A: Union[SparseCOO, SparseCSR], B, *, backend: str = "auto",
         gradient lands on ``A.values``, at the stored entries only.
       B: dense ``(m, p)`` or ``(b, m, p)`` tensor on A's device; batch
         dims must match A's (one side may be unbatched and is broadcast).
-      backend: ``"auto"`` | ``"dia"`` | ``"pallas"`` (the chunk
-        engine) | ``"xla"`` (``"ell"`` raises until the ELL engine is
-        ported).
+      backend: ``"auto"`` | ``"dia"`` | ``"ell"`` (the ELL engine) |
+        ``"pallas"`` (the chunk engine) | ``"xla"``.
       grad_precision: ``"exact"`` or ``"fast"``.  ``"fast"`` rounds the
         fused chunk backward's products ``values[e] · G[row_e]`` to
         bfloat16 before their column sum (under

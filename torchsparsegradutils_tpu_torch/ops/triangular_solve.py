@@ -54,12 +54,12 @@ import torch.nn.functional as F
 
 from ..kernels import _build
 from ..kernels.dia import build_dia_plan, values_to_grid
-from ..kernels.dia_tri import tri_dia_core
+from ..kernels.dia_tri import tri_dia_core, tri_dia_takes
 from ..kernels.window_gather import WindowGather
 from ..types import SparseCOO, SparseCSR, StaticArray, is_sparse
 from .spmm import sddmm
 
-__all__ = ["sparse_triangular_solve", "tri_levels"]
+__all__ = ["sparse_triangular_solve", "tri_levels", "tri_route"]
 
 # In place of the JAX package's environment variables (TSGU_WAVE_KPCT,
 # TSGU_WAVE_GATE, TSGU_TRI_SKEW), with their defaults.
@@ -479,11 +479,11 @@ def _wave_tri_solve(plan: _WavePlan, values, B, *, unit: bool):
 # forward dispatch (2-D core)
 # --------------------------------------------------------------------------
 
-def _tri_dia_forward(A, B, *, upper: bool, unit: bool, transpose: bool):
-    """Banded path: one launch of the triangular kernel.  Upper and
-    transpose solves reduce to the lower core by grid-level shifts and
-    flips, with no value permutation.  Returns None when the pattern is
-    not pure DIA or the band is too wide."""
+def _tri_dia_plan(A, *, upper: bool, transpose: bool):
+    """``(plan, lower-form offsets, upper-after-transpose)`` of the banded
+    route, or None where it does not apply: a pattern that is not pure
+    DIA.  Upper and transpose solves reduce to the lower core by
+    grid-level shifts and flips."""
     rs, cs = A.row_sa(), A.col_sa()
     if rs.arr.ndim != 1:
         return None
@@ -491,21 +491,28 @@ def _tri_dia_forward(A, B, *, upper: bool, unit: bool, transpose: bool):
     plan = build_dia_plan(rs, cs, n, n)
     if plan is None or plan.is_hybrid:
         return None
+    geo = plan.geo.T if transpose else plan.geo
+    eff_upper = upper != transpose
+    # full index reversal turns upper into lower: the grid flips on both
+    # axes, the offsets negate (and re-sort)
+    offsets = np.sort(-geo.offsets) if eff_upper else geo.offsets
+    return plan, offsets, eff_upper
+
+
+def _tri_dia_forward(A, B, *, upper: bool, unit: bool, transpose: bool):
+    """Banded path: one launch of the triangular kernel, with no value
+    permutation.  Returns None when the pattern is not pure DIA or the
+    kernel does not take it (too wide a band, another dtype)."""
+    planned = _tri_dia_plan(A, upper=upper, transpose=transpose)
+    if planned is None:
+        return None
+    plan, offsets, eff_upper = planned
     grid = values_to_grid(plan, A.values)
-    geo = plan.geo
-    eff_upper = upper
     if transpose:
-        grid = geo.shift(grid)
-        geo = geo.T
-        eff_upper = not upper
-    offsets = geo.offsets
+        grid = plan.geo.shift(grid)
     B = B.contiguous()
     if eff_upper:
-        # full index reversal turns upper into lower: the grid flips on
-        # both axes, the offsets negate (and re-sort)
-        grid = grid.flip(0, 1)
-        offsets = np.sort(-offsets)
-        B = B.flip(0)
+        grid, B = grid.flip(0, 1), B.flip(0)
     out = tri_dia_core(offsets, grid.contiguous(), B, unit=unit)
     if out is None:
         return None
@@ -531,31 +538,40 @@ def _use_wave(rows: StaticArray, cols: StaticArray, n: int, nb: int,
     return wplan.S <= gate * -(-n // nb)
 
 
-def _tri_forward_2d(A, B, *, upper: bool, unit: bool, transpose: bool,
-                    algorithm: str, block_size: Optional[int]):
+def _tri_sizes(A, *, upper: bool, transpose: bool, block_size):
+    """The blocked solve's row block ``nb``, the wave plan's ``wnb``, and
+    the (rows, cols, upper) the plans are built from: Aᵀ x = B swaps the
+    two index arrays (and the triangle), so every plan table indexes A's
+    own values, with no value permutation."""
+    n = A.shape[0]
+    if block_size:
+        nb = block_size
+    elif n >= 16384:
+        nb = 512
+    else:
+        nb = min(128, max(8, 1 << (n - 1).bit_length() if n < 128 else 128))
+    rows = A.col_sa() if transpose else A.row_sa()
+    cols = A.row_sa() if transpose else A.col_sa()
+    return nb, min(block_size or 128, 128), rows, cols, upper != transpose
+
+
+def tri_route(A, dtype: torch.dtype, *, upper: bool, transpose: bool = False,
+              algorithm: str = "auto", block_size: Optional[int] = None
+              ) -> str:
+    """The route ``sparse_triangular_solve`` takes for a 2-D A and a B of
+    ``dtype``: ``"dia"`` (K9), ``"dense"``, ``"wave"`` or ``"block"``;
+    raises what the solve raises for an algorithm it cannot run."""
     if algorithm in ("auto", "dia"):
-        out = _tri_dia_forward(A, B, upper=upper, unit=unit,
-                               transpose=transpose)
-        if out is not None:
-            return out
+        planned = _tri_dia_plan(A, upper=upper, transpose=transpose)
+        if planned is not None and tri_dia_takes(planned[1], dtype):
+            return "dia"
     if algorithm == "dia":
         raise ValueError(
             "sparse_triangular_solve: algorithm='dia' requires a "
             "diagonal-structured (banded) static pattern")
-    n = A.shape[0]
     if algorithm == "dense":
-        # Aᵀ x = B is the solve with the other triangle of the transpose
-        Ad = A.todense().to(_build.acc_dtype(B.dtype))
-        if transpose:
-            Ad, upper = Ad.mT, not upper
-        return torch.linalg.solve_triangular(
-            Ad, B.to(Ad.dtype), upper=upper,
-            unitriangular=unit).to(B.dtype)
-    # Aᵀ x = B: the plans are built from the per-entry (row, col) arrays,
-    # so swapping the two (and the triangle) makes every plan table index
-    # A's own values, with no value permutation
-    if transpose:
-        upper = not upper
+        return "dense"
+    n = A.shape[0]
     if algorithm not in ("auto", "block", "wave"):
         raise ValueError(f"unknown algorithm {algorithm!r}; expected "
                          "'auto', 'dia', 'wave', 'block' or 'dense'")
@@ -565,21 +581,39 @@ def _tri_forward_2d(A, B, *, upper: bool, unit: bool, transpose: bool,
             "sparse_triangular_solve: algorithm='wave' needs n > 256 "
             "(below that the blocked scan is a single step; use "
             "algorithm='block' or 'auto')")
-    if block_size:
-        nb = block_size
-    elif n >= 16384:
-        nb = 512
-    else:
-        nb = min(128, max(8, 1 << (n - 1).bit_length() if n < 128 else 128))
-    rows = A.col_sa() if transpose else A.row_sa()
-    cols = A.row_sa() if transpose else A.col_sa()
     if algorithm in ("auto", "wave") and n > 256:
-        wnb = min(block_size or 128, 128)
-        if algorithm == "wave" or _use_wave(rows, cols, n, nb, wnb, upper,
+        nb, wnb, rows, cols, up = _tri_sizes(A, upper=upper,
+                                             transpose=transpose,
+                                             block_size=block_size)
+        if algorithm == "wave" or _use_wave(rows, cols, n, nb, wnb, up,
                                             WAVE_KPCT, WAVE_GATE, TRI_SKEW):
-            wplan = _build_wave_plan(rows, cols, n, wnb, not upper,
-                                     kpct=WAVE_KPCT)
-            return _wave_tri_solve(wplan, A.values, B, unit=unit)
+            return "wave"
+    return "block"
+
+
+def _tri_forward_2d(A, B, *, upper: bool, unit: bool, transpose: bool,
+                    algorithm: str, block_size: Optional[int]):
+    route = tri_route(A, B.dtype, upper=upper, transpose=transpose,
+                      algorithm=algorithm, block_size=block_size)
+    if route == "dia":
+        return _tri_dia_forward(A, B, upper=upper, unit=unit,
+                                transpose=transpose)
+    if route == "dense":
+        # Aᵀ x = B is the solve with the other triangle of the transpose
+        Ad = A.todense().to(_build.acc_dtype(B.dtype))
+        if transpose:
+            Ad, upper = Ad.mT, not upper
+        return torch.linalg.solve_triangular(
+            Ad, B.to(Ad.dtype), upper=upper,
+            unitriangular=unit).to(B.dtype)
+    nb, wnb, rows, cols, upper = _tri_sizes(A, upper=upper,
+                                            transpose=transpose,
+                                            block_size=block_size)
+    n = A.shape[0]
+    if route == "wave":
+        wplan = _build_wave_plan(rows, cols, n, wnb, not upper,
+                                 kpct=WAVE_KPCT)
+        return _wave_tri_solve(wplan, A.values, B, unit=unit)
     plan = _build_tri_plan(rows, cols, n, nb, not upper)
     return _blocked_tri_solve(plan, A.values, B, lower=not upper, unit=unit)
 

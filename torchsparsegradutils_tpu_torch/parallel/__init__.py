@@ -16,7 +16,9 @@ given: CUDA tensors under NCCL, CPU tensors under gloo.
 * :mod:`.chunk_sharded`: the same with each slab on the chunk kernel K13
   (``build_sharded_chunk_plan``, ``sharded_chunk_spmm``);
 * :mod:`.dia_sharded`: stencil operators with B row-sharded too and a
-  halo exchange (``sharded_dia_spmm``, ``matvec_closures``);
+  halo exchange (``sharded_dia_spmm``; ``matvec_closures``, whose
+  closures carry the group the Krylov solvers sum their reductions
+  over);
 * :mod:`.training`: the dp × tp SGD step of the sparse-precision
   Gaussian (``make_model``, ``init_params``, ``loss_fn``,
   ``make_train_step``).

@@ -26,7 +26,8 @@ Two parts, as for every sharded op of this package:
   the group.
 
 ``matvec_closures`` gives ``(mv, mv_t)`` over the same machinery, for a
-distributed Krylov solve.
+distributed Krylov solve: the solvers of ``solvers/`` read the closures'
+``group`` and sum every column reduction over it.
 
 Example (on every rank of a group of S ranks)::
 
@@ -231,10 +232,23 @@ def matvec_closures(A, group=None):
     """``(mv, mv_t)`` closures over :func:`sharded_dia_spmm` for A and Aᵀ,
     for a Krylov solver: a distributed solve for stencil systems.  The
     operator values are closed over; ``x`` is this rank's
-    ``(rows_per_shard, p)`` (or ``(rows_per_shard,)``) slab."""
+    ``(rows_per_shard, p)`` (or ``(rows_per_shard,)``) slab.
+
+    Each closure carries the group as ``mv.group`` (``group`` or the
+    default group), and the layout as ``mv.rows_per_shard``,
+    ``mv.n_padded`` and ``mv.layout``.  The solvers read ``mv.group`` and
+    sum their column reductions over it, so JAX's call
+    ``linear_cg(mv, rhs)`` is the same call here, with ``rhs`` this
+    rank's slab (rows past n zero)::
+
+        mv, mv_t = matvec_closures(A)
+        x = linear_cg(mv, rhs_slab)          # this rank's slab of A⁻¹ rhs
+        x, itn = lsmr(mv, rhs_slab, rmatvec=mv_t)
+    """
     At = A.T
     f = sharded_dia_spmm(A, group)
     fT = sharded_dia_spmm(At, group)
+    reduce_over = dist.group.WORLD if group is None else group
 
     def _wrap(g, M):
         def mv(x):
@@ -242,6 +256,9 @@ def matvec_closures(A, group=None):
             xm = x[:, None] if squeeze else x
             y = g(M.values, xm)
             return y[:, 0] if squeeze else y
+        mv.group = reduce_over
+        mv.rows_per_shard, mv.n_padded = g.rows_per_shard, g.n_padded
+        mv.layout = g.layout
         return mv
 
     return _wrap(f, A), _wrap(fT, At)

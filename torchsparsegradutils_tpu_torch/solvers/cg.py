@@ -19,10 +19,12 @@ import torch
 from .common import (
     SolveInfo,
     as_matvec,
+    col_dot,
     col_norms,
     ensure_matrix,
     maybe_warn_not_converged,
     safe_div,
+    solve_group,
     while_loop,
 )
 
@@ -45,7 +47,7 @@ class LinearCGSettings:
 @torch.no_grad()
 def linear_cg(A, rhs, *, settings: LinearCGSettings = LinearCGSettings(),
               preconditioner: Optional[Callable] = None, x0=None,
-              n_tridiag: int = 0, diagnostics: bool = False):
+              n_tridiag: int = 0, diagnostics: bool = False, group=None):
     """Solve ``A x = rhs`` for SPD ``A`` (matrix-like or matvec closure).
 
     Runs under ``torch.no_grad()``: no autograd graph is kept across
@@ -62,6 +64,9 @@ def linear_cg(A, rhs, *, settings: LinearCGSettings = LinearCGSettings(),
         ``(max_iter-1, n_tridiag)`` (entries beyond ``iters`` are 0).
       diagnostics: when True, additionally return a
         :class:`~.common.SolveInfo` as the last element.
+      group: process group of a distributed solve (``rhs``, ``x0`` and
+        ``x`` are this rank's row slabs); default ``A.group`` where the
+        operator has one (``parallel.matvec_closures``), else none.
 
     Returns:
       ``x`` with the shape of ``rhs`` (plus the tridiag tuple if
@@ -69,6 +74,7 @@ def linear_cg(A, rhs, *, settings: LinearCGSettings = LinearCGSettings(),
       non-convergence ``UserWarning`` fires.
     """
     mv = as_matvec(A)
+    group = solve_group(A, group)
     b, was_vec = ensure_matrix(rhs, A)
     n, k = b.shape
     dtype, dev = b.dtype, b.device
@@ -79,7 +85,7 @@ def linear_cg(A, rhs, *, settings: LinearCGSettings = LinearCGSettings(),
     precond = preconditioner if preconditioner is not None else (lambda r: r)
 
     # normalise rhs columns
-    b_norm = col_norms(b)
+    b_norm = col_norms(b, group)
     b_is_zero = b_norm < torch.finfo(dtype).tiny
     scale = torch.where(b_is_zero, 1.0, b_norm)
     b_hat = b / scale
@@ -89,9 +95,9 @@ def linear_cg(A, rhs, *, settings: LinearCGSettings = LinearCGSettings(),
     r = b_hat - (mv(x) if x0 is not None else torch.zeros_like(b))
     z = precond(r)
     p = z
-    rz = (r * z).sum(0)
+    rz = col_dot(r, z, group)
 
-    tol = torch.maximum(settings.rtol * col_norms(b_hat),
+    tol = torch.maximum(settings.rtol * col_norms(b_hat, group),
                         settings.atol / scale).to(dtype)
 
     mi = settings.max_iter
@@ -101,7 +107,7 @@ def linear_cg(A, rhs, *, settings: LinearCGSettings = LinearCGSettings(),
     at_o = torch.arange(max(mi - 1, 1), device=dev)[:, None]
 
     def converged_mask(r):
-        res = col_norms(r)
+        res = col_norms(r, group)
         if settings.mean_residual:
             return (res.mean() < tol.mean()).expand(k)
         return res < tol
@@ -113,14 +119,14 @@ def linear_cg(A, rhs, *, settings: LinearCGSettings = LinearCGSettings(),
     def body(st, i):
         x, r, z, p, rz = st[:5]
         Ap = mv(p)
-        pAp = (p * Ap).sum(0)
+        pAp = col_dot(p, Ap, group)
         alpha = safe_div(rz, pAp)
         frozen = converged_mask(r) | b_is_zero
         alpha = torch.where(frozen, 0.0, alpha)
         x = x + alpha * p
         r = r - alpha * Ap
         z = precond(r)
-        rz_new = (r * z).sum(0)
+        rz_new = col_dot(r, z, group)
         beta = torch.where(frozen, 0.0, safe_div(rz_new, rz))
         p = z + beta * p
         out = (x, r, z, p, rz_new)
@@ -149,14 +155,14 @@ def linear_cg(A, rhs, *, settings: LinearCGSettings = LinearCGSettings(),
     if settings.verbose:
         def verbose(st, i):
             print(f"linear_cg iter {int(i)}: mean residual "
-                  f"{col_norms(st[1]).mean().item():.3e}")
+                  f"{col_norms(st[1], group).mean().item():.3e}")
     state, iters = while_loop(cond, body, state, mi, verbose)
     x, r = state[0], state[1]
 
     x = x * scale
     x = torch.where(b_is_zero, 0.0, x)
     x_out = x[:, 0] if was_vec else x
-    res = col_norms(r) * scale          # de-normalised absolute residual
+    res = col_norms(r, group) * scale   # de-normalised absolute residual
     conv = converged_mask(r) | b_is_zero
     info = SolveInfo(iterations=iters,
                      residual=res[0] if was_vec else res,

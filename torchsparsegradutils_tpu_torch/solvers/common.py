@@ -25,6 +25,18 @@ right-hand side, K6 at several), else on the generic gather and
 ``index_add`` branch; dense matrices use ``@``, and a callable is taken
 as the matvec itself.
 
+Distributed solves: each driver takes ``group``, a
+``torch.distributed`` process group, or reads it from the operator
+(``parallel.dia_sharded.matvec_closures`` sets ``mv.group``).  With a
+group, ``x``, the right-hand side and every Krylov vector are this
+rank's row slab, and every column reduction that feeds a step length,
+a residual or the convergence flag goes through :func:`col_dot` or
+:func:`col_norms`, which sum the ``(k,)`` partials over the group
+(``all_reduce``).  Every rank then holds the same scalars and flag, so
+every rank stops at the same step with no collective left pending.
+JAX sums these over the mesh inside XLA, on global arrays.  Without a
+group nothing is added: a one-rank group gives the same bits.
+
 Settings are frozen dataclasses, as in the JAX package.
 """
 
@@ -34,6 +46,7 @@ import warnings
 from typing import Callable, NamedTuple
 
 import torch
+import torch.distributed as dist
 
 from ..types import is_sparse
 
@@ -126,34 +139,39 @@ def _vec(core):
     return mv
 
 
-def _dia_matvec(A, transpose: bool):
-    """DIA matvec with the value relayouts hoisted out of the loop; None
-    if the pattern is not DIA."""
-    from ..kernels.dia import prepared_matvec
+def matvec_route(A):
+    """The route of a solve's matvec for a 2-D container, chosen once a
+    solve: ``("dia", DiaPlan)``, else ``("chunk", ChunkPlan)`` (the chunk
+    engine: K8 at one right-hand side, K6 at several), else ``("xla",
+    None)``, the generic branch."""
     from ..ops import spmm
 
     plan = spmm._dia_plan(A, "auto")
-    if plan is None:
-        return None
-    return _vec(prepared_matvec(plan, A.values, transpose))
+    if plan is not None:
+        return "dia", plan
+    plan = spmm._chunk_plan(A, "auto")
+    if plan is not None:
+        return "chunk", plan
+    return "xla", None
 
 
 def _sparse_matvec(A, transpose: bool):
-    """``x -> A x`` (or ``Aᵀ x``) for a 2-D container, its route chosen
-    once: DIA, else the chunk engine (its transpose plan for ``Aᵀ``),
-    else the generic branch."""
+    """``x -> A x`` (or ``Aᵀ x``) for a 2-D container on the route of
+    :func:`matvec_route`: the DIA matvec with its value relayouts
+    hoisted out of the loop, the chunk engine (its transpose plan for
+    ``Aᵀ``), or the generic branch."""
     from ..kernels.chunk_spmm import ChunkSpmm
+    from ..kernels.dia import prepared_matvec
     from ..ops import spmm
 
     if A.ndim != 2:
         raise ValueError(f"solvers: A must be a 2-D matrix, got shape "
                          f"{A.shape}")
-    mv = _dia_matvec(A, transpose)
-    if mv is not None:
-        return mv
+    route, plan = matvec_route(A)
     vals = A.values
-    plan = spmm._chunk_plan(A, "auto")
-    if plan is not None:
+    if route == "dia":
+        return _vec(prepared_matvec(plan, vals, transpose))
+    if route == "chunk":
         if transpose:
             plan, vals = plan.T, plan.to_T(vals)
         return _vec(lambda x: ChunkSpmm.apply(plan, vals, x))
@@ -214,11 +232,38 @@ def ensure_matrix(b, A=None):
     raise ValueError(f"rhs must be 1-D or 2-D, got {b.ndim}-D")
 
 
-def col_norms(x: torch.Tensor) -> torch.Tensor:
-    """Real column 2-norms (complex-safe: |x|² via conjugation)."""
+def solve_group(A, group=None):
+    """The process group a solve's column reductions are summed over:
+    ``group``, else the operator's ``group`` attribute, else None (no
+    reduction).  ``parallel.dia_sharded.matvec_closures`` sets it on its
+    closures, so ``linear_cg(mv, rhs_slab)`` is a distributed solve."""
+    return group if group is not None else getattr(A, "group", None)
+
+
+def group_sum(t: torch.Tensor, group) -> torch.Tensor:
+    """``t`` summed over ``group`` in place (``all_reduce``), or ``t``
+    itself when ``group`` is None; ``group_sum.calls`` counts the
+    all-reduces."""
+    if group is not None:
+        dist.all_reduce(t, group=group)
+        group_sum.calls += 1
+    return t
+
+
+group_sum.calls = 0
+
+
+def col_dot(a: torch.Tensor, b: torch.Tensor, group=None) -> torch.Tensor:
+    """Column dots ``(a * b).sum(0)``, summed over ``group``'s row slabs."""
+    return group_sum((a * b).sum(0), group)
+
+
+def col_norms(x: torch.Tensor, group=None) -> torch.Tensor:
+    """Real column 2-norms (complex-safe: |x|² via conjugation), over
+    ``group``'s row slabs."""
     if x.is_complex():
-        return torch.sqrt((x * x.conj()).real.sum(0))
-    return torch.sqrt((x * x).sum(0))
+        return torch.sqrt(group_sum((x * x.conj()).real.sum(0), group))
+    return torch.sqrt(col_dot(x, x, group))
 
 
 def safe_div(a, b, eps=None):

@@ -18,7 +18,7 @@ import torch
 
 from ..types import is_sparse
 from .common import as_matvec, as_rmatvec, col_norms, ensure_matrix, \
-    while_loop
+    solve_group, while_loop
 
 __all__ = ["lsmr", "LSMRSettings"]
 
@@ -43,7 +43,7 @@ def _sym_ortho(a, b):
 
 @torch.no_grad()
 def lsmr(A, b, *, rmatvec: Optional[Callable] = None,
-         settings: LSMRSettings = LSMRSettings(), x0=None):
+         settings: LSMRSettings = LSMRSettings(), x0=None, group=None):
     """Solve ``min ‖Ax − b‖²`` (+ damping) for tall or square ``A``.
 
     Runs under ``torch.no_grad()``: no autograd graph is kept across
@@ -54,6 +54,10 @@ def lsmr(A, b, *, rmatvec: Optional[Callable] = None,
         ``rmatvec``, the ``Aᴴ`` closure, is required).
       b: ``(n,)`` or ``(n, k)``.
       x0: optional initial guess.
+      group: process group of a distributed solve over ``(mv, mv_t)``
+        closures (``b``, ``x`` and the Krylov vectors are row slabs);
+        default ``A.group`` where the operator has one
+        (``parallel.matvec_closures``).
 
     Returns:
       ``(x, itn)``: the solution shaped ``(m,)`` / ``(m, k)`` and the
@@ -61,6 +65,7 @@ def lsmr(A, b, *, rmatvec: Optional[Callable] = None,
     """
     mv = as_matvec(A)
     rmv = as_rmatvec(A) if rmatvec is None else rmatvec
+    group = solve_group(A, group)
     b2, was_vec = ensure_matrix(b, A)
     n, k = b2.shape
     dtype, dev = b2.dtype, b2.device
@@ -89,11 +94,11 @@ def lsmr(A, b, *, rmatvec: Optional[Callable] = None,
     def ok():
         return torch.ones((k,), dtype=rdtype, device=dev)
 
-    normb = col_norms(b2)
-    beta = col_norms(u)
+    normb = col_norms(b2, group)
+    beta = col_norms(u, group)
     u = u / torch.where(beta > 0, beta, 1.0)
     v = rmv(u)
-    alpha = torch.where(beta > 0, col_norms(v), 0.0)
+    alpha = torch.where(beta > 0, col_norms(v, group), 0.0)
     v = v / torch.where(alpha > 0, alpha, 1.0)
 
     already_done = alpha * beta == 0  # b (or the residual at x0) is zero
@@ -107,7 +112,7 @@ def lsmr(A, b, *, rmatvec: Optional[Callable] = None,
         condA = torch.maximum(maxrbar, rho) / torch.clamp(
             torch.minimum(minrbar, rho), min=tiny)
         normar = zetabar.abs()
-        normx = col_norms(x)
+        normx = col_norms(x, group)
         test1 = normr / safe_normb
         test2 = normar / torch.clamp(normA * normr, min=tiny)
         test3 = 1.0 / condA
@@ -126,10 +131,10 @@ def lsmr(A, b, *, rmatvec: Optional[Callable] = None,
 
         # Golub–Kahan step
         u = mv(v) - alpha * u
-        beta = col_norms(u)
+        beta = col_norms(u, group)
         u = u / torch.where(beta > 0, beta, 1.0)
         v = rmv(u) - beta * v
-        alpha = col_norms(v)
+        alpha = col_norms(v, group)
         v = v / torch.where(alpha > 0, alpha, 1.0)
 
         # damping rotation

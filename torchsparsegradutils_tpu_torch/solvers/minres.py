@@ -19,9 +19,11 @@ import torch
 from .common import (
     SolveInfo,
     as_matvec,
+    col_dot,
     col_norms,
     ensure_matrix,
     maybe_warn_not_converged,
+    solve_group,
     while_loop,
 )
 
@@ -41,7 +43,7 @@ class MINRESSettings:
 @torch.no_grad()
 def minres(A, rhs, *, shifts=None,
            settings: MINRESSettings = MINRESSettings(),
-           diagnostics: bool = False):
+           diagnostics: bool = False, group=None):
     """Solve ``A x = rhs`` (symmetric A), optionally for several shifts.
 
     Runs under ``torch.no_grad()``: no autograd graph is kept across
@@ -54,6 +56,8 @@ def minres(A, rhs, *, shifts=None,
         jointly, returning a leading shift axis.
       diagnostics: when True, also return a ``SolveInfo`` whose
         residual/converged carry the same (shift, column) axes as ``x``.
+      group: process group of a distributed solve (row slabs); default
+        ``A.group`` where the operator has one, as ``linear_cg``'s.
 
     Returns:
       ``x`` shaped like ``rhs`` (with a leading ``(s,)`` axis if shifts
@@ -61,6 +65,7 @@ def minres(A, rhs, *, shifts=None,
       non-convergence ``UserWarning`` fires.
     """
     mv = as_matvec(A)
+    group = solve_group(A, group)
     b, was_vec = ensure_matrix(rhs, A)
     n, k = b.shape
     dtype, dev = b.dtype, b.device
@@ -75,7 +80,7 @@ def minres(A, rhs, *, shifts=None,
         squeeze_shift = False
     s = sig.shape[0]
 
-    b_norm = col_norms(b)
+    b_norm = col_norms(b, group)
     b_is_zero = b_norm < fi.tiny
     scale = torch.where(b_is_zero, 1.0, b_norm)
     b_hat = b / scale  # unit columns
@@ -83,7 +88,7 @@ def minres(A, rhs, *, shifts=None,
                       min=settings.rtol).to(dtype)
 
     # shared Lanczos state
-    beta0 = col_norms(b_hat)
+    beta0 = col_norms(b_hat, group)
     v = b_hat / torch.where(beta0 > 0, beta0, 1.0)
     v_prev = torch.zeros_like(b)
 
@@ -106,9 +111,9 @@ def minres(A, rhs, *, shifts=None,
         frozen = frozen_mask(phibar)
         # shared Lanczos step on unshifted A
         Av = mv(v)
-        alfa = (v * Av).sum(0)                              # (k,)
+        alfa = col_dot(v, Av, group)                        # (k,)
         r = Av - alfa * v - beta * v_prev
-        beta_new = col_norms(r)
+        beta_new = col_norms(r, group)
         v_new = r / torch.where(beta_new > eps, beta_new, 1.0)
 
         # per-shift Paige–Saunders rotations
