@@ -114,7 +114,19 @@ last line:
    ``diagonal`` and the factor's values against the same calls with
    every kernel on its plain version on the card, the precision forms'
    solve residual (<= 1e-5) through ``sparse_mm``, then the times; and
-   five Adam steps of a GMRF fit (the loss must fall); one ``models``
+   five Adam steps of a GMRF fit through the example's ``step``
+   (``torchsparsegradutils_tpu_torch/examples/fit_sparse_gmrf.py``; the
+   loss must fall); one ``models`` JSON line; then (3g,
+   ``phase_interop``) the ELL engine, distributed solves, interop and
+   ``explain``; then (3h, ``phase_dynamic``) device-resident patterns
+   (``pattern_static=False``): a kNN pattern of 3,086,000 entries drawn
+   on the card each step through ``sparse_mm`` fwd+bwd and ``sddmm``
+   with zero host syncs, no plan and no kernel launch, against the same
+   pattern static (K6, K7, K3) and beside the static path's host work a
+   new pattern; ``tocsr`` of the random pattern shuffled (two K3
+   launches, bitwise the static one, zero syncs); both LSE ops; CG in
+   float64 on the stencil SPD (the static solve's iterations); the dense
+   triangular fallback at n = 4,096 with its warning; one ``dynamic``
    JSON line;
 4. times the chained forward and forward+backward steps, profiles
    seven of them, times the triangular solve's host plans, times K1 per
@@ -146,7 +158,8 @@ last line:
 Without a CUDA device it exits 1 and prints no result.
 
 ``python3 chip_smoke.py --solve`` builds the kernels and runs phase 3e
-alone, ``--models`` phase 3f.  ``python3 chip_smoke.py --k1`` prints only K1's ``k1_times`` and the
+alone, ``--models`` phase 3f, ``--interop`` phase 3g, ``--dynamic``
+phase 3h.  ``python3 chip_smoke.py --k1`` prints only K1's ``k1_times`` and the
 times of the steps that launch it (stencil, hybrid85, stencil p=16,
 sharded-dia fwd+bwd; wall and profiled device time) as one
 ``k1_compare`` line; ``--k2`` prints K2's ``k2_times`` and the same
@@ -2274,7 +2287,10 @@ def syncs_seen(where):
         finally:
             torch.cuda.set_sync_debug_mode("default")
     for w in seen:
-        if "synchroniz" in str(w.message):
+        # the mode's own notice ("... is a prototype feature ...") is no
+        # sync
+        if "synchroniz" in str(w.message) \
+                and "prototype feature" not in str(w.message):
             key = f"{w.filename.rsplit('/', 2)[-1]}:{w.lineno}"
             where[key] = where.get(key, 0) + 1
 
@@ -2496,7 +2512,7 @@ MODEL_FORMS = {"cov_llt": (True, False), "cov_ldlt": (True, True),
                "prec_llt": (False, False), "prec_ldlt": (False, True)}
 MODEL_RES = 1e-5             # the precision forms' solve residual
 MODEL_REPS = 3               # timed repeats of each call
-FIT_STEPS, FIT_LR = 5, 3e-2  # examples/fit_sparse_gmrf.py's Adam rate
+FIT_STEPS = 5   # Adam steps of the example's step (examples/fit_sparse_gmrf.py)
 
 
 @contextlib.contextmanager
@@ -2572,6 +2588,8 @@ def phase_models(dev, card):
     import numpy as np
     import torch
     from torchsparsegradutils_tpu_torch import sparse_mm
+    from torchsparsegradutils_tpu_torch.examples import (
+        fit_sparse_gmrf as fit_example)
     from torchsparsegradutils_tpu_torch.models import (
         PairwiseEncoder, SparseMultivariateNormal)
 
@@ -2683,26 +2701,14 @@ def phase_models(dev, card):
         precision_tril=enc(model_values(enc, gen, 0.05).to(dev)))
     batch = truth.sample((MODEL_S,), generator=torch.Generator(
         device=dev).manual_seed(163))
-    params = {"values": torch.zeros((len(enc.offsets),) + MODEL_VOLUME,
-                                    device=dev),
-              "log_diag": torch.zeros(n, device=dev),
-              "loc": torch.zeros(n, device=dev)}
-    for v in params.values():
-        v.requires_grad_(True)
-    opt = torch.optim.Adam(params.values(), lr=FIT_LR)
+    params = fit_example.init_params(enc, dev)
+    opt = torch.optim.Adam(params.values(), lr=fit_example.LR)
     losses, walls = [], []
     zero_counters()
     for _ in range(FIT_STEPS):
         torch.cuda.synchronize()
         t_step = time.perf_counter()
-        opt.zero_grad()
-        d = SparseMultivariateNormal(params["loc"],
-                                     torch.exp(params["log_diag"]),
-                                     precision_tril=enc(params["values"]))
-        loss = -d.log_prob(batch).mean()
-        loss.backward()
-        opt.step()
-        losses.append(loss.item())
+        losses.append(fit_example.step(params, opt, enc, batch).item())
         walls.append((time.perf_counter() - t_step) * 1e3)
     fit_launches = read_counters("gmrf fit", ())
     print(f"  gmrf fit: losses {losses}, step wall ms {walls}")
@@ -3016,9 +3022,372 @@ def phase_interop(dev, card, seen=None, mats=None):
     return rec
 
 
+# phase 3h: device-resident (dynamic) sparsity patterns
+KNN_K = 25                   # columns a row: N * 25 = 3,086,000 entries
+DYN_TRI_N = 4096             # the dense fallback's n: a 64 MiB factor
+DYN_TRI_NNZ = 8 * 4096
+DYN_REPS = 10                # timed repeats of each dynamic step
+LSE_TOL, LSE_GRAD_TOL = (1e-5, 1e-6), GRAD_TOL
+
+
+def knn_pattern(gen):
+    """``(indptr, cols)`` of a kNN-like CSR pattern made on the card:
+    ``KNN_K`` distinct columns a row, sorted, drawn from ``gen`` (a CUDA
+    generator); no host read."""
+    import torch
+    dev = gen.device
+    draw = torch.randint(0, N - KNN_K, (N, KNN_K), generator=gen,
+                         device=dev).sort(dim=1).values
+    cols = (draw + torch.arange(KNN_K, device=dev)).reshape(-1)
+    indptr = torch.arange(N + 1, device=dev) * KNN_K
+    return indptr, cols
+
+
+def no_plans():
+    """Count DIA and chunk plan builds reached through the ops (a dynamic
+    step must build none): returns the counter dict and an undo."""
+    from torchsparsegradutils_tpu_torch.ops import logsumexp, spmm
+    built = {"plans": 0}
+    saved = []
+    for mod, name in ((spmm, "build_dia_plan"), (spmm, "build_chunk_plan"),
+                      (logsumexp, "build_dia_plan")):
+        fn = getattr(mod, name)
+
+        def counted(*a, _fn=fn, **k):
+            built["plans"] += 1
+            return _fn(*a, **k)
+        saved.append((mod, name, fn))
+        setattr(mod, name, counted)
+
+    def undo():
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+    return built, undo
+
+
+def new_pattern_host_cost(indptr, cols, values):
+    """The static path's host work for one new pattern: the indices to
+    the host, the ``StaticArray`` hashes, ``build_dia_plan``,
+    ``build_chunk_plan`` and the transpose plan ``plan.T``; seconds of
+    each on the card's host."""
+    import torch
+    from torchsparsegradutils_tpu_torch import SparseCSR
+    from torchsparsegradutils_tpu_torch.kernels.chunk_spmm import (
+        build_chunk_plan)
+    from torchsparsegradutils_tpu_torch.kernels.dia import build_dia_plan
+    out = {}
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    ip, cl = indptr.cpu().numpy(), cols.cpu().numpy()
+    out["to_host_s"] = time.perf_counter() - t
+    t = time.perf_counter()
+    A = SparseCSR(ip, cl, values, (N, N))
+    rs, cs = A.row_sa(), A.col_sa()
+    out["hash_s"] = time.perf_counter() - t
+    t = time.perf_counter()
+    build_dia_plan(rs, cs, N, N)
+    out["dia_plan_s"] = time.perf_counter() - t
+    t = time.perf_counter()
+    plan = build_chunk_plan(rs, cs, N, N)
+    out["chunk_plan_s"] = time.perf_counter() - t
+    t = time.perf_counter()
+    plan.T
+    out["transpose_plan_s"] = time.perf_counter() - t
+    out["total_s"] = sum(out.values())
+    return out, A
+
+
+def phase_dynamic(dev, card, R=None):
+    """Phase 3h: device-resident patterns (``pattern_static=False``) at
+    cfd2 width, float32 unless stated.
+
+    *knn-dynamic*: at each step a new kNN-like pattern (N rows, 25
+    columns a row) is drawn on the card and ``sparse_mm`` fwd+bwd at
+    p = 128 and ``sddmm`` run on it as a dynamic CSR: zero host syncs
+    (``torch.cuda.set_sync_debug_mode``), no plan built, no kernel
+    launched; held against the same pattern as a static container on
+    its default engine (K6, K7, K3) within ``1e-5·max|ref|``; times,
+    beside the static path's host cost of each new pattern.  *dynamic
+    tocsr*: a dynamic COO of phase 2's random pattern (``R``, its
+    entries shuffled) to CSR, forward and backward: one K3 launch each,
+    no plain version, bitwise the static ``coo_to_csr`` and K3's value
+    permutations bitwise ``index_select`` by the host ``lexsort``'s
+    permutation and its inverse, zero syncs.
+    *dynamic LSE*: ``sparse_bidir_logsumexp`` fwd+bwd on ``R`` as a
+    dynamic CSR against the static one, zero syncs; both routes' event
+    and device times and profiles.  *dynamic solve*:
+    ``sparse_generic_solve`` with CG in float64 on phase 3e's stencil
+    SPD as a dynamic CSR against the static solve (K1): the same
+    iterations, the solution within 1e-10 relative, residual <= 1e-4,
+    host reads one every ``CHECK_EVERY`` steps.  *dynamic triangular*:
+    the dense fallback at n = 4,096 with the JAX package's warning,
+    residual <= 1e-5.  Prints one ``dynamic`` JSON line."""
+    import warnings
+
+    import numpy as np
+    import torch
+    from torchsparsegradutils_tpu_torch import (
+        SparseCOO, SparseCSR, make_spd_stencil, sddmm, sparse_bidir_logsumexp,
+        sparse_generic_solve, sparse_mm, sparse_triangular_solve)
+    from torchsparsegradutils_tpu_torch import solvers as ps
+    from torchsparsegradutils_tpu_torch.solvers import common
+    from torchsparsegradutils_tpu_torch.utils import coo_to_csr
+    from torchsparsegradutils_tpu_torch.utils.random_sparse import (
+        rand_sparse, rand_sparse_tri)
+
+    t0 = time.perf_counter()
+    gen = torch.Generator().manual_seed(19)
+    cgen = torch.Generator(device=dev).manual_seed(19)
+    if R is None:
+        R = rand_sparse((N, N), NNZ_RANDOM, layout="csr", generator=gen,
+                        device=dev)
+    rec = {"card": card}
+    everything = tuple(counters()) + tuple(PLAIN)
+
+    # ---- knn-dynamic ---------------------------------------------------------
+    vals = torch.randn(N * KNN_K, generator=gen).to(dev)
+    B = torch.randn(N, P, generator=gen).to(dev)
+    G = torch.randn(N, P, generator=gen).to(dev)
+
+    def dyn_step(pattern=None):
+        indptr, cols = knn_pattern(cgen) if pattern is None else pattern
+        A = SparseCSR(indptr, cols, vals, (N, N), pattern_static=False)
+        v = vals.clone().requires_grad_(True)
+        b = B.clone().requires_grad_(True)
+        out = sparse_mm(A.with_data(v), b)
+        ga, gb = torch.autograd.grad(out, (v, b), G)
+        return out, ga, gb, sddmm(A, G, B).values
+
+    pattern = knn_pattern(cgen)
+    syncs, (built, undo) = {}, no_plans()
+    try:
+        zero_counters()
+        with syncs_seen(syncs):
+            got = dyn_step(pattern)
+        read_counters("knn-dynamic", (), everything)
+    finally:
+        undo()
+    if syncs or built["plans"]:
+        raise AssertionError(f"knn-dynamic: host syncs {syncs}, "
+                             f"{built['plans']} plans built")
+    host, S = new_pattern_host_cost(*pattern, vals)
+    zero_counters()
+    v = vals.clone().requires_grad_(True)
+    b = B.clone().requires_grad_(True)
+    out = sparse_mm(S.with_data(v), b)
+    ref = (out, *torch.autograd.grad(out, (v, b), G),
+           sddmm(S, G, B).values)
+    static_launches = read_counters("knn-static", CHUNK_KERNELS)
+    for name, g_, r_ in zip(("out", "gradA", "gradB", "sddmm"), got, ref):
+        close(f"knn-dynamic {name} vs static", g_, r_, "float32")
+    del got, ref, out
+    step_event = time_ms(lambda: dyn_step(), reps=DYN_REPS)
+    walls = []
+    for _ in range(DYN_REPS):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        dyn_step()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t) * 1e3)
+
+    def static_step():
+        v_ = vals.clone().requires_grad_(True)
+        b_ = B.clone().requires_grad_(True)
+        o = sparse_mm(S.with_data(v_), b_)
+        torch.autograd.grad(o, (v_, b_), G)
+        sddmm(S, G, B)
+    static_event = time_ms(static_step, reps=DYN_REPS)
+    dev_ms = device_ms(lambda: dyn_step(), "", reps=5)
+    profile_step("knn_dynamic", lambda: dyn_step(), steps=3, top=8)
+    host2 = new_pattern_host_cost(*knn_pattern(cgen), vals)[0]
+    rec["knn_dynamic"] = {
+        "n": N, "k": KNN_K, "nnz": N * KNN_K, "p": P,
+        "syncs": syncs, "plans_built": built["plans"],
+        "step_event_ms": step_event, "step_wall_ms": walls,
+        "step_device_ms": dev_ms, "static_step_event_ms": static_event,
+        "static_launches": {k: c for k, c in static_launches.items() if c},
+        "static_new_pattern_host_s": [host, host2]}
+    print(f"  knn-dynamic: step event {step_event:.3f} ms, device "
+          f"{dev_ms:.3f} ms, wall {min(walls):.2f}-{max(walls):.2f} ms; "
+          f"static step {static_event:.3f} ms plus "
+          f"{host['total_s']:.3f} / {host2['total_s']:.3f} s of host work "
+          f"a new pattern {host}")
+    del S, vals, B, G, pattern
+    print(f"  3h knn-dynamic done at {time.perf_counter() - t0:.1f} s")
+
+    # ---- dynamic tocsr -----------------------------------------------------
+    perm = torch.randperm(R.nnz, generator=cgen, device=dev)
+    rows_u, cols_u = R.rows_t()[perm].to(torch.int32), R.cols_t()[perm].to(
+        torch.int32)
+    vals_u = R.values[perm].contiguous()
+    w = torch.randn(R.nnz, generator=gen).to(dev)
+    D = SparseCOO(rows_u, cols_u, vals_u, (N, N), pattern_static=False)
+    U = SparseCOO(rows_u.cpu().numpy(), cols_u.cpu().numpy(), vals_u,
+                  (N, N))
+
+    def to_csr(M):
+        v_ = M.values.clone().requires_grad_(True)
+        C = coo_to_csr(M.with_data(v_))
+        return C, torch.autograd.grad((C.values * w).sum(), v_)[0]
+
+    syncs = {}
+    zero_counters()
+    with syncs_seen(syncs):
+        Cd, gd = to_csr(D)
+    launches = read_counters("dynamic tocsr", ("gather",),
+                             ("gather_plain",))
+    if launches["gather"] != 2 or syncs:
+        raise AssertionError(f"dynamic tocsr: {launches['gather']} K3 "
+                             f"launches (want 2), host syncs {syncs}")
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    Cs, gs = to_csr(U)
+    torch.cuda.synchronize()
+    static_ms = (time.perf_counter() - t) * 1e3
+    host = (torch.from_numpy(Cs.indptr_np().copy()),
+            torch.from_numpy(Cs.cols().copy()))
+    same = (torch.equal(Cd.indptr.cpu(), host[0])
+            and torch.equal(Cd.indices.cpu(), host[1])
+            and torch.equal(Cd.values, Cs.values) and torch.equal(gd, gs))
+    # K3's value permutations against plain index_select by the host
+    # lexsort's permutation and its inverse
+    order = np.lexsort((cols_u.cpu().numpy(), rows_u.cpu().numpy()))
+    inv = np.empty_like(order)
+    inv[order] = np.arange(len(order))
+    order, inv = (torch.from_numpy(a).to(dev) for a in (order, inv))
+    plain = (torch.equal(Cd.values, vals_u.index_select(0, order))
+             and torch.equal(gd, w.index_select(0, inv)))
+    if not (same and plain):
+        raise AssertionError(f"dynamic tocsr: bitwise the static coo_to_csr "
+                             f"{same}, K3 equal to index_select {plain}")
+    rec["dynamic_tocsr"] = {
+        "nnz": R.nnz, "k3_launches": launches["gather"], "syncs": syncs,
+        "bitwise": True,
+        "event_ms": time_ms(lambda: to_csr(D), reps=DYN_REPS),
+        "device_ms": device_ms(lambda: to_csr(D), "", reps=5),
+        "static_wall_ms": static_ms}
+    print(f"  dynamic tocsr: 2 K3 launches, bitwise the static coo_to_csr "
+          f"and index_select by the host lexsort, "
+          f"event {rec['dynamic_tocsr']['event_ms']:.3f} ms (static "
+          f"{static_ms:.1f} ms wall with its host sort)")
+    del D, U, Cd, Cs, gd, gs, perm, rows_u, cols_u, vals_u, w
+    print(f"  3h dynamic tocsr done at {time.perf_counter() - t0:.1f} s")
+
+    # ---- dynamic LSE ---------------------------------------------------------
+    Rd = SparseCSR(R.indptr_t().to(torch.int32), R.cols_t().to(torch.int32),
+                   R.values, R.shape, pattern_static=False)
+    gc, gr = (torch.randn(N, generator=gen).to(dev) for _ in range(2))
+
+    def lse(M):
+        v_ = M.values.clone().requires_grad_(True)
+        c, r = sparse_bidir_logsumexp(M.with_data(v_))
+        return c, r, torch.autograd.grad((c * gc).sum() + (r * gr).sum(),
+                                         v_)[0]
+
+    syncs = {}
+    zero_counters()
+    with syncs_seen(syncs):
+        got = lse(Rd)
+    read_counters("dynamic LSE", (), everything)
+    if syncs:
+        raise AssertionError(f"dynamic LSE: host syncs {syncs}")
+    ref = lse(R)
+    close("dynamic LSE col vs static", got[0], ref[0], "float32", LSE_TOL)
+    close("dynamic LSE row vs static", got[1], ref[1], "float32", LSE_TOL)
+    close("dynamic LSE gradA vs static", got[2], ref[2], "float32",
+          LSE_GRAD_TOL)
+    rec["dynamic_lse"] = {
+        "syncs": syncs, "event_ms": time_ms(lambda: lse(Rd), reps=DYN_REPS),
+        "device_ms": device_ms(lambda: lse(Rd), "", reps=5),
+        "static_event_ms": time_ms(lambda: lse(R), reps=DYN_REPS),
+        "static_device_ms": device_ms(lambda: lse(R), "", reps=5)}
+    print(f"  dynamic LSE: event {rec['dynamic_lse']['event_ms']:.3f} ms, "
+          f"device {rec['dynamic_lse']['device_ms']:.3f} ms; static "
+          f"{rec['dynamic_lse']['static_event_ms']:.3f} / "
+          f"{rec['dynamic_lse']['static_device_ms']:.3f} ms")
+    profile_step("lse_dynamic", lambda: lse(Rd), steps=3, top=8)
+    profile_step("lse_static", lambda: lse(R), steps=3, top=8)
+    del Rd, got, ref
+    print(f"  3h dynamic LSE done at {time.perf_counter() - t0:.1f} s")
+
+    # ---- dynamic solve (float64) ----------------------------------------------
+    st = ps.LinearCGSettings(**SOLVE_ST)
+    spd = {}
+    for static in (True, False):
+        spd[static] = make_spd_stencil(
+            N, SPD_OFFSETS, layout="csr", dtype=torch.float64,
+            generator=torch.Generator().manual_seed(20), device=dev,
+            pattern_static=static)
+    b = torch.randn(N, generator=gen, dtype=torch.float64).to(dev)
+    solves = {}
+    for static in (True, False):
+        log = []
+        solver = Recorder(ps.linear_cg, log)
+        zero_counters()
+        x = sparse_generic_solve(spd[static], b, solve=solver,
+                                 transpose_solve=solver, settings=st)
+        lc = read_counters(f"dynamic solve static={static}",
+                           ("dia_spmm",) if static else (),
+                           () if static else everything)
+        solves[static] = (x, take(log)[0], lc)
+    (xs, ls, _), (xd, ld, _) = solves[True], solves[False]
+    relx = rel(xd, xs)
+    res = rel(plain_mv(spd[False], xd), b)
+    reads_cap = -(-ld["iterations"] // common.CHECK_EVERY) + 1
+    if ld["iterations"] != ls["iterations"] or not relx <= 1e-10 \
+            or not res <= SOLVE_RES or ld["reads"] > reads_cap:
+        raise AssertionError(
+            f"dynamic solve: iterations {ld['iterations']} vs static "
+            f"{ls['iterations']}, solution {relx:.3e} off, residual "
+            f"{res:.3e}, {ld['reads']} host reads (cap {reads_cap})")
+    timing = solve_timing(lambda: sparse_generic_solve(
+        spd[False], b, solve=ps.linear_cg, settings=st))
+    rec["dynamic_solve"] = {
+        "nnz": spd[False].nnz, "dtype": "float64",
+        "iterations": ld["iterations"], "static_iterations": ls["iterations"],
+        "reads": ld["reads"], "rel_solution": relx, "rel_residual": res,
+        "timing": timing, "static_timing": solve_timing(
+            lambda: sparse_generic_solve(spd[True], b, solve=ps.linear_cg,
+                                         settings=st))}
+    print(f"  dynamic solve: {ld['iterations']} CG iterations (static "
+          f"{ls['iterations']}), solution {relx:.2e} off the static, "
+          f"residual {res:.2e}, {ld['reads']} host reads, wall "
+          f"{timing['wall_ms']:.1f} ms, device {timing['device_ms']:.2f} ms")
+    del spd, solves, xs, xd
+    print(f"  3h dynamic solve done at {time.perf_counter() - t0:.1f} s")
+
+    # ---- dynamic triangular (the dense fallback) ------------------------------
+    T = rand_sparse_tri((DYN_TRI_N, DYN_TRI_N), DYN_TRI_NNZ, generator=gen,
+                        device=dev, pattern_static=False)
+    bt = torch.randn(DYN_TRI_N, 2, generator=gen).to(dev)
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        x = sparse_triangular_solve(T, bt, upper=False)
+    said = [str(w_.message) for w_ in seen
+            if issubclass(w_.category, UserWarning)
+            and "densified" in str(w_.message)]
+    res = rel(sparse_mm(T, x).double(), bt.double())
+    if not said or not res <= 1e-5:
+        raise AssertionError(f"dynamic triangular: warning {said}, "
+                             f"residual {res:.3e}")
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        tri_ms = time_ms(lambda: sparse_triangular_solve(T, bt, upper=False),
+                         reps=5)
+    rec["dynamic_triangular"] = {"n": DYN_TRI_N, "nnz": T.nnz,
+                                 "warning": said[0], "rel_residual": res,
+                                 "event_ms": tri_ms}
+    print(f"  dynamic triangular n = {DYN_TRI_N}: warned, residual "
+          f"{res:.2e}, {tri_ms:.2f} ms")
+    rec["seconds"] = time.perf_counter() - t0
+    print(f"card: {card}")
+    print(json.dumps({"dynamic": rec}))
+    return rec
+
+
 def phase_only(phase) -> int:
-    """``--solve`` / ``--models`` / ``--interop``: build the kernels and
-    run one phase (3e, 3f or 3g) alone."""
+    """``--solve`` / ``--models`` / ``--interop`` / ``--dynamic``: build
+    the kernels and run one phase (3e, 3f, 3g or 3h) alone."""
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3363,6 +3732,9 @@ def main() -> int:
     phase_interop(dev, card, seen, {"stencil": A, "random": R,
                                     "hybrid85": H, "B": B, "G": G})
     del seen
+    print(f"phase 3h: device-resident (dynamic) patterns "
+          f"({time.perf_counter() - t0:.1f} s in)")
+    dynamic = phase_dynamic(dev, card, R)
 
     # ---- phase 4: timing ---------------------------------------------------
     print(f"phase 4: timing ({time.perf_counter() - t0:.1f} s in)")
@@ -3707,6 +4079,8 @@ def main() -> int:
             # K3's event time is near the host's launch rate: the profiled
             # kernel time of K3 and of the library call
             row["device_ms"] = device_ms(kern, "gather_kernel")
+            row["dynamic_tocsr_launches"] = dynamic["dynamic_tocsr"][
+                "k3_launches"]
             row["library_device_ms"] = device_ms(lib, "")
         rows.append(row)
     rows.append(k13_row)
@@ -3724,7 +4098,7 @@ if __name__ == "__main__":
             "--k8": "k8", "--k9": "k9", "--k10": "k10"}.get(
                 " ".join(sys.argv[1:]))
     only = {"--solve": phase_solvers, "--models": phase_models,
-            "--interop": phase_interop}
+            "--interop": phase_interop, "--dynamic": phase_dynamic}
     if len(sys.argv) == 2 and sys.argv[1] in only:
         rc = phase_only(only[sys.argv[1]])
     else:

@@ -14,7 +14,7 @@ import numpy as np
 import pytest
 import torch
 
-from torchsparsegradutils_tpu_torch import (SparseCOO, sddmm,
+from torchsparsegradutils_tpu_torch import (SparseCOO, SparseCSR, sddmm,
                                             sparse_bidir_logsumexp,
                                             sparse_generic_lstsq,
                                             sparse_generic_solve,
@@ -1281,3 +1281,80 @@ def test_scipy_solve_on_card_runs_grad_a_on_the_kernels(dev, method):
     assert res.item() < 1e-4
     gb = sparse_solve_scipy(A, 2 * x.detach(), method=method)
     close(v.grad, -(gb[A.rows_t()] * x.detach()[A.cols_t()]), torch.float32)
+
+
+# --------------------------------------------------------------------------
+# device-resident (dynamic) patterns
+# --------------------------------------------------------------------------
+
+def test_dynamic_ops_on_card_make_no_host_sync(dev):
+    """A dynamic pattern on the card: ``sparse_mm`` fwd+bwd, ``sddmm``
+    and both LSE ops fwd+bwd run with no host sync (the sync debug mode
+    raises on one) and launch no kernel, and match the static container
+    on its default engine."""
+    A = rand_sparse((3000, 2000), 30_000, layout="csr", device=dev)
+    D = SparseCSR(torch.from_numpy(A.indptr_np().copy()).to(dev),
+                  A.cols_t(), A.values, A.shape, pattern_static=False)
+    gen = torch.Generator().manual_seed(21)
+    B = torch.randn(2000, 16, generator=gen).to(dev)
+    G = torch.randn(3000, 16, generator=gen).to(dev)
+
+    def run(M):
+        v = M.values.clone().requires_grad_(True)
+        b = B.clone().requires_grad_(True)
+        out = sparse_mm(M.with_data(v), b)
+        c, r = sparse_bidir_logsumexp(M.with_data(v))
+        grads = torch.autograd.grad((out * G).sum() + c.sum() + r.sum(),
+                                    (v, b))
+        return (out, c, r, sddmm(M, G, B).values) + grads
+
+    torch.cuda.synchronize()
+    before = _launch_counts()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = run(D)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert not _launched(before)
+    for x, ref in zip(got, run(A)):
+        close(x.detach(), ref.detach(), torch.float32)
+
+
+def test_dynamic_tocsr_on_card_launches_the_gather(dev, monkeypatch):
+    """A dynamic COO to CSR on the card: the sort and ``indptr`` on the
+    device with no host sync, the values through K3 forward and
+    backward (no plain version), bitwise the static ``coo_to_csr``."""
+    A = rand_sparse((2000, 1500), 20_000, device="cpu")
+    perm = np.random.default_rng(1).permutation(A.nnz)
+    rows, cols = A.rows()[perm], A.cols()[perm]
+    w = torch.randn(A.nnz, generator=torch.Generator().manual_seed(22))
+    vals = A.values[perm]
+
+    def run(U):
+        v = U.values.requires_grad_(True)
+        C = coo_to_csr(U.with_data(v))
+        (gv,) = torch.autograd.grad((C.values * w.to(v.device)).sum(), v)
+        first = C.indptr.cpu() if not C.pattern_static else \
+            torch.from_numpy(C.indptr_np().copy())
+        return first, C.cols_t().cpu(), C.values.cpu(), gv.cpu()
+
+    D = SparseCOO(torch.from_numpy(rows).to(dev),
+                  torch.from_numpy(cols).to(dev), vals.to(dev), A.shape,
+                  pattern_static=False)
+    _no_plain_models(monkeypatch)
+    wd, v = w.to(dev), D.values.clone().requires_grad_(True)
+    torch.cuda.synchronize()
+    before = window_gather.launches
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        C = coo_to_csr(D.with_data(v))
+        torch.autograd.grad((C.values * wd).sum(), v)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert window_gather.launches == before + 2
+    monkeypatch.undo()
+    got = run(D.with_data(D.values.clone()))
+    ref = run(SparseCOO(rows, cols, vals.clone(), A.shape))
+    for x, r in zip(got, ref):
+        assert torch.equal(x, r)

@@ -36,7 +36,8 @@ def _tensor(arr) -> torch.Tensor:
     return torch.from_numpy(np.array(arr))
 
 
-def from_arrays(layout: str, idx0, idx1, data, shape, *, device="cuda"):
+def from_arrays(layout: str, idx0, idx1, data, shape, *, device="cuda",
+                pattern_static: bool = True):
     """Container from index and value arrays.
 
     Args:
@@ -46,18 +47,21 @@ def from_arrays(layout: str, idx0, idx1, data, shape, *, device="cuda"):
       data: ``(*batch, nnz)`` values; float32, float64 or bfloat16 arrays
         keep their dtype.
       shape: ``(*batch, n, m)``.
-      device: where the values go.
+      device: where the values go (and the indices of a dynamic
+        pattern).
+      pattern_static: False builds a dynamic container.
     """
     if not isinstance(data, torch.Tensor):
         data = _tensor(data)
     data = data.to(device)
     idx0, idx1 = np.asarray(idx0), np.asarray(idx1)
+    kw = dict(pattern_static=pattern_static)
     if layout == "coo":
-        return SparseCOO(idx0, idx1, data, shape)
+        return SparseCOO(idx0, idx1, data, shape, **kw)
     if layout == "csr":
-        return SparseCSR(idx0, idx1, data, shape)
+        return SparseCSR(idx0, idx1, data, shape, **kw)
     if layout == "csc":
-        return SparseCSC(idx0, idx1, data, shape)
+        return SparseCSC(idx0, idx1, data, shape, **kw)
     raise ValueError(f"from_arrays: unknown layout {layout!r}")
 
 
@@ -65,12 +69,20 @@ def to_arrays(A):
     """``(layout, idx0, idx1, data, shape)`` of a container, all numpy.
 
     The inverse of :func:`from_arrays`.  numpy has no bfloat16, so
-    bfloat16 values come back as float32 (exactly).
+    bfloat16 values come back as float32 (exactly).  A dynamic pattern
+    is copied to the host, as the values are: the copy is what is asked.
     """
     vals = A.values.detach()
     if vals.dtype == torch.bfloat16:
         vals = vals.float()
     data = vals.cpu().numpy()
+    if not A.pattern_static:
+        if isinstance(A, SparseCOO):
+            return "coo", A.row.cpu().numpy(), A.col.cpu().numpy(), data, \
+                A.shape
+        layout = "csr" if isinstance(A, SparseCSR) else "csc"
+        return layout, A.indptr.cpu().numpy(), A.indices.cpu().numpy(), \
+            data, A.shape
     if isinstance(A, SparseCOO):
         return "coo", A.rows(), A.cols(), data, A.shape
     if isinstance(A, SparseCSR):

@@ -65,11 +65,21 @@ def _with_device_indices(sa, t: torch.Tensor):
     return sa
 
 
-def from_torch_coo(tensor) -> SparseCOO:
+def from_torch_coo(tensor, *, pattern_static: bool = True) -> SparseCOO:
     """2-D ``torch.sparse_coo`` tensor -> :class:`SparseCOO` (coalesced,
     row-major), its values ``tensor.coalesce().values()`` on the
-    tensor's device, differentiable."""
+    tensor's device, differentiable.  ``pattern_static=False`` keeps the
+    indices of a coalesced tensor on its device as a dynamic pattern."""
     _check(tensor, torch.sparse_coo, "from_torch_coo")
+    if not pattern_static:
+        if not tensor.is_coalesced():
+            raise ValueError(
+                "from_torch_coo(pattern_static=False) needs a coalesced "
+                "tensor: coalescing reads the pattern back to the host "
+                "(call tensor.coalesce() first)")
+        idx = tensor.indices()
+        return SparseCOO(idx[0], idx[1], tensor.values(), tuple(tensor.shape),
+                         pattern_static=False)
     t = tensor.coalesce()
     idx = t.indices()
     A = SparseCOO(idx[0], idx[1], t.values(), tuple(t.shape))
@@ -78,10 +88,16 @@ def from_torch_coo(tensor) -> SparseCOO:
     return A
 
 
-def from_torch_csr(tensor) -> SparseCSR:
+def from_torch_csr(tensor, *, pattern_static: bool = True) -> SparseCSR:
     """2-D ``torch.sparse_csr`` tensor -> :class:`SparseCSR`, its values
-    ``tensor.values()`` on the tensor's device, differentiable."""
+    ``tensor.values()`` on the tensor's device, differentiable.
+    ``pattern_static=False`` keeps its device indices as a dynamic
+    pattern."""
     _check(tensor, torch.sparse_csr, "from_torch_csr")
+    if not pattern_static:
+        return SparseCSR(tensor.crow_indices(), tensor.col_indices(),
+                         tensor.values(), tuple(tensor.shape),
+                         pattern_static=False)
     A = SparseCSR(tensor.crow_indices(), tensor.col_indices(),
                   tensor.values(), tuple(tensor.shape))
     _with_device_indices(A.indices, tensor.col_indices())
@@ -108,22 +124,23 @@ def to_torch_csr(A) -> torch.Tensor:
     _as_2d(A, "to_torch_csr")
     if not isinstance(A, SparseCSR):
         A = A.tocsr()
-    crow = torch.from_numpy(A.indptr_np().astype("int64")).to(A.device)
-    return torch.sparse_csr_tensor(crow, A.cols_t(), A.values, A.shape)
+    return torch.sparse_csr_tensor(A.indptr_t(), A.cols_t(), A.values,
+                                   A.shape)
 
 
-def _from_torch(tensor):
+def _from_torch(tensor, pattern_static: bool = True):
     if isinstance(tensor, torch.Tensor) and tensor.layout == torch.sparse_csr:
-        return from_torch_csr(tensor)
-    return from_torch_coo(tensor)
+        return from_torch_csr(tensor, pattern_static=pattern_static)
+    return from_torch_coo(tensor, pattern_static=pattern_static)
 
 
-def sparse_mm_torch(A_t, B, **kwargs):
+def sparse_mm_torch(A_t, B, *, pattern_static: bool = True, **kwargs):
     """``sparse_mm`` with a ``torch.sparse`` COO or CSR A: ``A_t @ B``,
     the gradient of A at its stored entries, on ``A_t.values()`` (the
-    coalesced values of a COO tensor).  ``kwargs`` go to ``sparse_mm``
-    (``backend``, ``grad_precision``)."""
-    return sparse_mm(_from_torch(A_t), B, **kwargs)
+    coalesced values of a COO tensor).  ``pattern_static`` goes to
+    :func:`from_torch_coo` / :func:`from_torch_csr`, ``kwargs`` to
+    ``sparse_mm`` (``backend``, ``grad_precision``)."""
+    return sparse_mm(_from_torch(A_t, pattern_static), B, **kwargs)
 
 
 def sparse_solve_torch(A_t, B, solve: Optional[Callable] = None,

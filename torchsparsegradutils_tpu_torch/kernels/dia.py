@@ -295,6 +295,12 @@ def _select_diagonals(offs: np.ndarray, n: int):
     Returns ``(keep_n, kept_order_idx, covered, uniq_offsets)``.
     """
     uniq, counts = np.unique(offs, return_counts=True)
+    return _select_counted(uniq, counts, len(offs), n)
+
+
+def _select_counted(uniq: np.ndarray, counts: np.ndarray, nnz: int, n: int):
+    """:func:`_select_diagonals` from the distinct offsets ``uniq`` and
+    their ``counts``."""
     order = np.argsort(-counts, kind="stable")
     cap = min(len(uniq), MAX_DIAGS)
     kept = order[:cap]
@@ -307,10 +313,10 @@ def _select_diagonals(offs: np.ndarray, n: int):
 
     keep_n = shrink(min(cap, int((counts[kept] * DIA_MAX_EXPAND >= n).sum())))
     covered = int(cum[keep_n - 1]) if keep_n else 0
-    if covered < HYBRID_MIN_COVER * len(offs):
+    if covered < HYBRID_MIN_COVER * nnz:
         keep_a = shrink(cap)
         cov_a = int(cum[keep_a - 1]) if keep_a else 0
-        if cov_a >= HYBRID_MIN_COVER * len(offs):
+        if cov_a >= HYBRID_MIN_COVER * nnz:
             return keep_a, kept, cov_a, uniq
     return keep_n, kept, covered, uniq
 
@@ -323,10 +329,13 @@ def dia_coverage(A) -> dict:
     ``kept_diagonals`` (K of the budgeted selection), ``coverage``
     (fraction of nnz on the kept diagonals), ``qualifies`` (whether
     :func:`build_dia_plan` returns a plan) and ``residual_nnz``.  A
-    batched pattern reports ``qualifies=False``.
+    batched pattern reports ``qualifies=False``.  A dynamic pattern is
+    counted on its device (:func:`_dynamic_coverage`).
     """
+    if not A.pattern_static and A.rows_t().ndim == 1:
+        return _dynamic_coverage(A)
     rs, cs = A.row_sa(), A.col_sa()
-    if rs.arr.ndim != 1:
+    if rs is None or rs.arr.ndim != 1:
         return {"nnz": A.nnz, "total_diagonals": -1, "kept_diagonals": 0,
                 "coverage": 0.0, "qualifies": False, "residual_nnz": -1}
     n, m = A.mat_shape
@@ -344,6 +353,41 @@ def dia_coverage(A) -> dict:
     }
 
 
+def _dynamic_coverage(A) -> dict:
+    """:func:`dia_coverage` of a 2-D dynamic pattern: the offsets are
+    counted on the device (``torch.unique``), and only the distinct
+    offsets, their counts and whether the entries are row-major come to
+    the host (a diagnostic's read; no op makes it)."""
+    rows, cols = A.rows_t(), A.cols_t()
+    n, m = A.mat_shape
+    nnz = A.nnz
+    uniq, counts = torch.unique(cols - rows, return_counts=True)
+    keep_n, kept, covered, uniq = _select_counted(
+        uniq.cpu().numpy(), counts.cpu().numpy(), nnz, n)
+    return {
+        "nnz": nnz,
+        "total_diagonals": int(len(uniq)),
+        "kept_diagonals": int(keep_n),
+        "coverage": covered / max(nnz, 1),
+        "qualifies": _row_major(rows, cols) and _dia_qualifies(
+            keep_n, covered, nnz),
+        "residual_nnz": nnz - covered,
+    }
+
+
+def _row_major(rows, cols) -> bool:
+    """Whether the entries are in strict row-major (CSR) order; numpy
+    arrays or tensors."""
+    dr, dc = rows[1:] - rows[:-1], cols[1:] - cols[:-1]
+    return not bool(((dr < 0) | ((dr == 0) & (dc <= 0))).any())
+
+
+def _dia_qualifies(keep_n: int, covered: int, nnz: int) -> bool:
+    """The DIA gate on a row-major pattern: the kept diagonals cover at
+    least ``HYBRID_MIN_COVER`` of its entries."""
+    return bool(nnz and keep_n and covered >= HYBRID_MIN_COVER * nnz)
+
+
 @lru_cache(maxsize=64)
 def build_dia_plan(rows_sa, cols_sa, n: int, m: int) -> Optional[DiaPlan]:
     """DIA plan of a pattern, or None when it does not qualify.
@@ -356,17 +400,11 @@ def build_dia_plan(rows_sa, cols_sa, n: int, m: int) -> Optional[DiaPlan]:
     rows = rows_sa.arr.astype(np.int64)
     cols = cols_sa.arr.astype(np.int64)
     nnz = len(rows)
-    if rows.ndim != 1 or nnz == 0:
+    if rows.ndim != 1 or nnz == 0 or not _row_major(rows, cols):
         return None
-    if nnz > 1:
-        d = np.diff(rows)
-        if (d < 0).any():
-            return None
-        if ((d == 0) & (np.diff(cols) <= 0)).any():
-            return None
     offs = cols - rows
     keep_n, kept, covered, uniq = _select_diagonals(offs, n)
-    if keep_n == 0 or covered < HYBRID_MIN_COVER * nnz:
+    if not _dia_qualifies(keep_n, covered, nnz):
         return None
     sel_offsets = np.sort(uniq[kept[:keep_n]])
     K = len(sel_offsets)

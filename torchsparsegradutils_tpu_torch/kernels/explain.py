@@ -17,6 +17,10 @@ branch), and ``dia``, ``wave`` or ``block`` for the triangular solve.
 On purpose the report differs from JAX's where the gates do: float64
 runs on the kernels (JAX sends it to XLA), the chunk engine takes every
 p (JAX p >= 32), and there is no ``core`` (the TPU's MXU or VPU split).
+A dynamic container (``pattern_static=False``) gets the JAX package's
+report of its jit-time behaviour: ``static: False`` and engine ``xla``
+for the four op families, with no kernel; its ``dia`` statistics are
+counted on its device.
 
 Example:
     >>> from torchsparsegradutils_tpu_torch import explain
@@ -147,9 +151,15 @@ def explain(A, p: int = 128) -> dict:
     n, m = A.mat_shape
     cov = dia_coverage(A)
     rep = {"pattern": {
-        "shape": (n, m), "nnz": A.nnz, "static": True,
+        "shape": (n, m), "nnz": A.nnz, "static": A.pattern_static,
         "dtype": str(A.dtype).removeprefix("torch."), "layout": A.layout,
         "dia": cov}}
+    if not A.pattern_static:
+        why = ("dynamic pattern: traced indices force the gather/segment "
+               "XLA formulation everywhere")
+        for op in ("sparse_mm", "sddmm", "sparse_logsumexp", "matvec"):
+            rep[op] = {"engine": "xla", "why": why, "kernels": []}
+        return rep
 
     dplan = spmm._dia_plan(A, "auto")
     if dplan is not None:

@@ -60,7 +60,11 @@ __all__ = ["SparseMultivariateNormal", "SparseMultivariateNormalNative"]
 
 
 def _check_tril(factor, strict: bool, what: str):
-    """Host-side triangularity check of the factor's pattern."""
+    """Host-side triangularity check of the factor's pattern; a dynamic
+    pattern is trusted, as in the JAX package (checking it would read it
+    back)."""
+    if not factor.pattern_static:
+        return
     r, c = factor.rows(), factor.cols()
     if strict:
         if not (c < r).all():
@@ -73,8 +77,8 @@ def _check_tril(factor, strict: bool, what: str):
 
 def _diag_positions(factor) -> np.ndarray:
     """Indices into the values of the n diagonal entries, in row order
-    (host numpy)."""
-    r, c = factor.rows(), factor.cols()
+    (host numpy); a dynamic pattern refuses, as in the JAX package."""
+    r, c = factor.rows_np("log_prob"), factor.cols_np("log_prob")
     if r.ndim != 1:
         raise ValueError("per-element batched patterns are not supported "
                          "for log_prob; use a shared pattern")

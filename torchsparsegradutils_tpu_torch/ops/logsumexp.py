@@ -22,9 +22,12 @@ The gradient lands on ``A.values`` only.  Routes, per 2-D static pattern
   degree-skewed ones; the column direction is the row LSE of the
   transpose, reached by the K3 gather.  On the CPU these run the
   kernels' plain versions.
-* ``"xla"``, batched input, ``dim=[0, 1]``, and ``"auto"`` on the CPU for
-  a pattern with no DIA plan: the segment path, ``scatter_reduce`` max
-  and ``index_add`` sum with the shift detached.
+* ``"xla"``, batched input, ``dim=[0, 1]``, a dynamic pattern
+  (``pattern_static=False``, on every backend, as in the JAX package),
+  and ``"auto"`` on the CPU for a pattern with no DIA plan: the segment
+  path, ``scatter_reduce`` max and ``index_add`` sum with the shift
+  detached, the structural zeros counted by ``index_add`` (no
+  ``bincount``, whose length is a read of the device).
 
 Unlike the JAX package, the DIA, grid and chunk routes also take float64
 (the CUDA kernels sum in float64).  Patterns are assumed duplicate-free.
@@ -82,6 +85,12 @@ def _scatter_logsumexp(values, seg, n_groups: int, n_zeros):
     return out.to(values.dtype)
 
 
+def _counts(seg: torch.Tensor, total: int) -> torch.Tensor:
+    """Entries per group, on the device and with no sync."""
+    return torch.zeros(total, dtype=torch.int64, device=seg.device
+                       ).index_add_(0, seg, torch.ones_like(seg))
+
+
 def _flat_indices(A):
     """(rows, cols, values, b): ``(b, nnz)`` each, b = 1 unbatched."""
     rows, cols, vals = A.rows_t(), A.cols_t(), A.values
@@ -120,7 +129,7 @@ def _dia_lse_gate(A, backend: str):
     if backend not in ("auto", "dia") or A.dtype not in _FLOATS:
         return None
     rs, cs = A.row_sa(), A.col_sa()
-    if rs.arr.ndim != 1:
+    if rs is None or rs.arr.ndim != 1:
         return None
     dia = build_dia_plan(rs, cs, *A.mat_shape)
     return None if dia is None or dia.is_hybrid else dia
@@ -174,7 +183,8 @@ def _fast_route_ok(A, backend: str) -> bool:
     if backend != "pallas" and not (backend == "auto"
                                     and A.device.type == "cuda"):
         return False
-    return A.ndim == 2 and A.dtype in _FLOATS and A.row_sa().arr.ndim == 1
+    return (A.ndim == 2 and A.dtype in _FLOATS and A.pattern_static
+            and A.row_sa().arr.ndim == 1)
 
 
 def _chunked_lse(A, include_zeros: bool, over_cols: bool, backend: str,
@@ -276,8 +286,7 @@ def sparse_logsumexp(A: Union[SparseCOO, SparseCSR, SparseCSC],
     b_off = torch.arange(b, device=seg_in.device)[:, None] * n_groups
     seg = (seg_in + b_off).reshape(-1)
     total = b * n_groups
-    n_zeros = (width - torch.bincount(seg, minlength=total)
-               if include_zeros else None)
+    n_zeros = width - _counts(seg, total) if include_zeros else None
     out = _scatter_logsumexp(vals.reshape(-1), seg, total, n_zeros).reshape(
         b, n_groups)
     if not batched:
@@ -376,7 +385,7 @@ def sparse_bidir_logsumexp(A: Union[SparseCOO, SparseCSR, SparseCSC],
         zero = torch.zeros_like(slot)
         width = torch.cat([torch.where(slot < ncols, nrows, zero),
                            torch.where(slot < nrows, ncols, zero)])
-        n_zeros = width - torch.bincount(seg, minlength=total)
+        n_zeros = width - _counts(seg, total)
     flat = vals.reshape(-1)
     padded = _scatter_logsumexp(torch.cat([flat, flat]), seg, total,
                                 n_zeros).reshape(2, b, G)

@@ -18,8 +18,12 @@ Dispatch, per 2-D pattern (the JAX package's ``_spmm_forward`` and
   engine.  On the CPU ``"auto"`` keeps the generic branch, as the JAX
   package does off the TPU.
 * ``"xla"``, and patterns with no plan (the chunk engine needs rows in
-  sorted order): the JAX package's generic gather + segment-sum branch,
-  in PyTorch ``index_select`` + ``index_add``.
+  sorted order, and a dynamic pattern, ``pattern_static=False``, has
+  none): the JAX package's generic gather + segment-sum branch, in
+  PyTorch ``index_select`` + ``index_add``, as one
+  ``torch.autograd.Function`` each (the JAX package's ``_dyn_spmm`` and
+  ``_dyn_sddmm``) with no host read.  ``"dia"``, ``"pallas"`` and
+  ``"ell"`` need a plan and refuse a dynamic pattern.
 * ``"ell"``: the ELL engine (``kernels/ell.py``), on every device: the
   forward over the row-ELL plan, ``sddmm`` the ELL SDDMM, and in the
   backward gradA the ELL SDDMM and gradB the column-ELL plan's SpMM.  A
@@ -59,7 +63,7 @@ from ..kernels.chunk_spmm import ChunkSddmm, ChunkSpmm, build_chunk_plan
 from ..kernels.dia import (build_dia_plan, chunk_bwd_fused_arg, dia_sddmm,
                            dia_spmm)
 from ..kernels.ell import EllOperator, EllSddmm, EllSpmm
-from ..types import SparseCOO, SparseCSR, is_sparse
+from ..types import SparseCOO, SparseCSR, is_sparse, refuse_dynamic
 
 __all__ = ["sparse_mm", "sddmm"]
 
@@ -77,7 +81,7 @@ def _dia_plan(A, backend: str):
         return None
     rs, cs = A.row_sa(), A.col_sa()
     plan = None
-    if rs.arr.ndim == 1:
+    if rs is not None and rs.arr.ndim == 1:
         plan = build_dia_plan(rs, cs, *A.mat_shape)
     if plan is None and backend == "dia":
         raise ValueError(
@@ -97,7 +101,7 @@ def _chunk_plan(A, backend: str):
             or (backend == "auto" and A.device.type == "cuda")):
         return None
     rs = A.row_sa()
-    if rs.arr.ndim != 1:
+    if rs is None or rs.arr.ndim != 1:
         return None
     return build_chunk_plan(rs, A.col_sa(), *A.mat_shape)
 
@@ -109,11 +113,80 @@ def _fallback_spmm(n, rows, cols, values, B):
     return out.index_add(0, rows, prod)
 
 
-def _fallback_sddmm(rows, cols, X, Y):
-    return (X.index_select(0, rows) * Y.index_select(0, cols)).sum(-1)
+def _regathered(saved, src, idx):
+    """A gather the forward kept, or under ``create_graph`` the gather
+    taken again, so that a higher derivative reaches ``src``."""
+    return src.index_select(0, idx) if torch.is_grad_enabled() else saved
+
+
+class _GenericSpmm(torch.autograd.Function):
+    """The generic ``A @ B`` over int64 ``rows`` and ``cols`` (the JAX
+    package's ``_dyn_spmm``): gradA is the generic SDDMM at the pattern
+    over the forward's gathered B rows, gradB the ``index_add``
+    transpose; both take one gather of the cotangent's rows.  The
+    backward is made of differentiable ops, so higher derivatives
+    work."""
+
+    @staticmethod
+    def forward(ctx, values, B, rows, cols, n):
+        B_cols = B.index_select(0, cols)
+        ctx.save_for_backward(values, B, rows, cols,
+                              B_cols if ctx.needs_input_grad[0] else None)
+        return B.new_zeros((n, B.shape[-1])).index_add(
+            0, rows, values[:, None] * B_cols)
+
+    @staticmethod
+    def backward(ctx, g):
+        values, B, rows, cols, B_cols = ctx.saved_tensors
+        g_rows = g.index_select(0, rows)
+        d_values = d_B = None
+        if ctx.needs_input_grad[0]:
+            d_values = (g_rows * _regathered(B_cols, B, cols)).sum(-1)
+        if ctx.needs_input_grad[1]:
+            d_B = B.new_zeros(B.shape).index_add(0, cols,
+                                                 values[:, None] * g_rows)
+        return d_values, d_B, None, None, None
+
+
+class _GenericSddmm(torch.autograd.Function):
+    """The generic SDDMM over int64 ``rows`` and ``cols`` (the JAX
+    package's ``_dyn_sddmm``): gradX and gradY are ``index_add`` SpMMs
+    of the cotangent over the forward's gathered rows."""
+
+    @staticmethod
+    def forward(ctx, X, Y, rows, cols):
+        X_rows, Y_cols = X.index_select(0, rows), Y.index_select(0, cols)
+        ctx.save_for_backward(X, Y, rows, cols,
+                              X_rows if ctx.needs_input_grad[1] else None,
+                              Y_cols if ctx.needs_input_grad[0] else None)
+        return (X_rows * Y_cols).sum(-1)
+
+    @staticmethod
+    def backward(ctx, g):
+        X, Y, rows, cols, X_rows, Y_cols = ctx.saved_tensors
+        d_X = d_Y = None
+        if ctx.needs_input_grad[0]:
+            d_X = X.new_zeros(X.shape).index_add(
+                0, rows, g[:, None] * _regathered(Y_cols, Y, cols))
+        if ctx.needs_input_grad[1]:
+            d_Y = Y.new_zeros(Y.shape).index_add(
+                0, cols, g[:, None] * _regathered(X_rows, X, rows))
+        return d_X, d_Y, None, None
+
+
+def _refuse_planned(A, backend: str):
+    """A dynamic pattern has no plan: the backends that need one refuse
+    it (``"dia"`` with the JAX package's own message)."""
+    if A.pattern_static:
+        return
+    if backend == "dia":
+        _dia_plan(A, backend)
+    if backend in ("pallas", "ell"):
+        refuse_dynamic(f"backend={backend!r}")
 
 
 def _spmm_2d(backend, A, B, grad_precision="exact"):
+    _refuse_planned(A, backend)
     if backend == "ell":
         return EllSpmm.apply(EllOperator.of(A), A.values, B)
     plan = _dia_plan(A, backend)
@@ -123,10 +196,12 @@ def _spmm_2d(backend, A, B, grad_precision="exact"):
     cplan = _chunk_plan(A, backend)
     if cplan is not None:
         return ChunkSpmm.apply(cplan, A.values, B, fused)
-    return _fallback_spmm(A.shape[-2], A.rows_t(), A.cols_t(), A.values, B)
+    return _GenericSpmm.apply(A.values, B, A.rows_t(), A.cols_t(),
+                              A.shape[-2])
 
 
 def _sddmm_2d(backend, A, X, Y):
+    _refuse_planned(A, backend)
     if backend == "ell":
         return EllSddmm.apply(EllOperator.of(A), X, Y)
     plan = _dia_plan(A, backend)
@@ -135,14 +210,16 @@ def _sddmm_2d(backend, A, X, Y):
     cplan = _chunk_plan(A, backend)
     if cplan is not None:
         return ChunkSddmm.apply(cplan, X, Y)
-    return _fallback_sddmm(A.rows_t(), A.cols_t(), X, Y)
+    return _GenericSddmm.apply(X, Y, A.rows_t(), A.cols_t())
 
 
 def _shared_elem(A):
     """2-D container over the shared pattern of a batched container."""
     if isinstance(A, SparseCOO):
-        return SparseCOO(A.row, A.col, A.values[0], A.mat_shape)
-    return SparseCSR(A.indptr, A.indices, A.values[0], A.mat_shape)
+        return SparseCOO(A.row, A.col, A.values[0], A.mat_shape,
+                         pattern_static=A.pattern_static)
+    return SparseCSR(A.indptr, A.indices, A.values[0], A.mat_shape,
+                     pattern_static=A.pattern_static)
 
 
 def _batch_index(A, idx: torch.Tensor, size: int) -> torch.Tensor:
@@ -217,22 +294,25 @@ def sparse_mm(A: Union[SparseCOO, SparseCSR], B, *, backend: str = "auto",
     if A.ndim == 2:  # B batched
         return torch.stack([_spmm_2d(backend, A, b, grad_precision)
                             for b in B.unbind(0)])
-    if not A.indices_batched():  # shared pattern: one plan, loop the batch
+    if A.pattern_static and not A.indices_batched():
+        # shared pattern: one plan, loop the batch
         A0 = _shared_elem(A)
         return torch.stack([
             _spmm_2d(backend, A0.with_data(A.values[i]),
                      B if B.ndim == 2 else B[i], grad_precision)
             for i in range(A.shape[0])])
-    # per-element patterns: the generic branch over the flattened batch
+    # per-element or dynamic patterns: the generic branch over the
+    # flattened batch
+    _refuse_planned(A, backend)
     b, n, m = A.shape
     p = B.shape[-1]
     rows = _batch_index(A, A.rows_t(), n)
     if B.ndim == 2:
-        cols, Bf = A.cols_t().reshape(-1), B
+        cols, Bf = A.cols_t().expand(b, A.nnz).reshape(-1), B
     else:
         cols, Bf = _batch_index(A, A.cols_t(), m), B.reshape(b * m, p)
-    return _fallback_spmm(b * n, rows, cols, A.values.reshape(-1),
-                          Bf).view(b, n, p)
+    return _GenericSpmm.apply(A.values.reshape(-1), Bf, rows, cols,
+                              b * n).view(b, n, p)
 
 
 def sddmm(A: Union[SparseCOO, SparseCSR], X, Y, *, backend: str = "auto"):
@@ -271,15 +351,17 @@ def sddmm(A: Union[SparseCOO, SparseCSR], X, Y, *, backend: str = "auto"):
         if X.ndim == 2:
             X = X.expand((b,) + tuple(X.shape))
             Y = Y.expand((b,) + tuple(Y.shape))
-        if not A.indices_batched():
+        if A.pattern_static and not A.indices_batched():
             A0 = _shared_elem(A)
             vals = torch.stack([_sddmm_2d(backend, A0, X[i], Y[i])
                                 for i in range(b)])
         else:
+            _refuse_planned(A, backend)
             k = X.shape[-1]
-            vals = _fallback_sddmm(
-                _batch_index(A, A.rows_t(), n), _batch_index(A, A.cols_t(), m),
-                X.reshape(b * n, k), Y.reshape(b * m, k)).view(b, -1)
+            vals = _GenericSddmm.apply(
+                X.reshape(b * n, k), Y.reshape(b * m, k),
+                _batch_index(A, A.rows_t(), n),
+                _batch_index(A, A.cols_t(), m)).view(b, -1)
         return A.with_data(vals)
     raise ValueError(f"sddmm: unsupported ndim combination A={A.ndim}, "
                      f"X={X.ndim}")

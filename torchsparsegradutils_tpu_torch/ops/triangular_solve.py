@@ -18,7 +18,11 @@ Forward algorithms, chosen per pattern as the JAX package chooses them:
   permuted into dependency-level order (:func:`tri_levels`), packed into
   slabs of up to ``gcap`` blocks that depend only on earlier slabs.
 * ``"block"``: blocked back-substitution, one row block per step.
-* ``"dense"``: densify and call ``torch.linalg.solve_triangular``.
+* ``"dense"``: densify and call ``torch.linalg.solve_triangular``.  A
+  dynamic pattern (``pattern_static=False``) takes it for every
+  ``algorithm``, as in the JAX package (the plans need the pattern on
+  the host), with the JAX package's ``UserWarning`` above n = 2,048;
+  ``"dia"`` refuses it with the JAX package's message.
 
 The wave and block solves are what the JAX package computes in XLA (a
 ``lax.scan`` of gather + contraction + block-inverse product, no
@@ -48,6 +52,8 @@ from dataclasses import dataclass, field
 from functools import lru_cache
 from typing import Optional, Union
 
+import warnings
+
 import numpy as np
 import torch
 import torch.nn.functional as F
@@ -56,7 +62,8 @@ from ..kernels import _build
 from ..kernels.dia import build_dia_plan, values_to_grid
 from ..kernels.dia_tri import tri_dia_core, tri_dia_takes
 from ..kernels.window_gather import WindowGather
-from ..types import SparseCOO, SparseCSR, StaticArray, is_sparse
+from ..types import (SparseCOO, SparseCSR, StaticArray, is_sparse,
+                     refuse_dynamic)
 from .spmm import sddmm
 
 __all__ = ["sparse_triangular_solve", "tri_levels", "tri_route"]
@@ -485,7 +492,7 @@ def _tri_dia_plan(A, *, upper: bool, transpose: bool):
     DIA.  Upper and transpose solves reduce to the lower core by
     grid-level shifts and flips."""
     rs, cs = A.row_sa(), A.col_sa()
-    if rs.arr.ndim != 1:
+    if rs is None or rs.arr.ndim != 1:
         return None
     n = A.shape[0]
     plan = build_dia_plan(rs, cs, n, n)
@@ -575,6 +582,8 @@ def tri_route(A, dtype: torch.dtype, *, upper: bool, transpose: bool = False,
     if algorithm not in ("auto", "block", "wave"):
         raise ValueError(f"unknown algorithm {algorithm!r}; expected "
                          "'auto', 'dia', 'wave', 'block' or 'dense'")
+    if not A.pattern_static:
+        return "dense"
     if algorithm == "wave" and n <= 256:
         # nothing to schedule at this size (a single <=256-row block)
         raise ValueError(
@@ -599,6 +608,11 @@ def _tri_forward_2d(A, B, *, upper: bool, unit: bool, transpose: bool,
         return _tri_dia_forward(A, B, upper=upper, unit=unit,
                                 transpose=transpose)
     if route == "dense":
+        if not A.pattern_static:
+            if algorithm != "dense" and A.shape[0] > 2048:
+                warnings.warn(
+                    "sparse_triangular_solve: dynamic-pattern input falls "
+                    "back to a densified solve (O(n^2) memory)", UserWarning)
         # Aᵀ x = B is the solve with the other triangle of the transpose
         Ad = A.todense().to(_build.acc_dtype(B.dtype))
         if transpose:
@@ -657,7 +671,10 @@ class _TriSolve(torch.autograd.Function):
 # --------------------------------------------------------------------------
 
 def _has_explicit_diag(A) -> bool:
-    return bool((A.rows() == A.cols()).any())
+    """Whether the pattern stores a diagonal entry; False for a dynamic
+    pattern, which cannot be checked without a read (as in the JAX
+    package)."""
+    return A.pattern_static and bool((A.rows() == A.cols()).any())
 
 
 def _batch_elem(A, i: Optional[int]):
@@ -742,6 +759,8 @@ def sparse_triangular_solve(A: Union[SparseCOO, SparseCSR], B, *,
         raise ValueError("sparse_triangular_solve: B must be 1-D, 2-D or "
                          "3-D")
     # batched A
+    if not A.pattern_static:
+        refuse_dynamic("batched triangular solve")
     if B.ndim == 2:
         B = B.expand((A.shape[0],) + tuple(B.shape))
     if B.ndim != 3 or B.shape[0] != A.shape[0]:

@@ -143,9 +143,12 @@ def matvec_route(A):
     """The route of a solve's matvec for a 2-D container, chosen once a
     solve: ``("dia", DiaPlan)``, else ``("chunk", ChunkPlan)`` (the chunk
     engine: K8 at one right-hand side, K6 at several), else ``("xla",
-    None)``, the generic branch."""
+    None)``, the generic branch, which a dynamic pattern always takes
+    (no plan is read)."""
     from ..ops import spmm
 
+    if not A.pattern_static:
+        return "xla", None
     plan = spmm._dia_plan(A, "auto")
     if plan is not None:
         return "dia", plan

@@ -6,7 +6,9 @@ Port of ``rand_sparse``, ``rand_sparse_tri``, ``stencil_sparse``,
 on the host with numpy from a seeded ``numpy.random.Generator``
 (vectorised, so a cfd2-scale pattern of 123,440 rows and 3M entries
 takes about a second), in row-major order; values are normal draws from
-an explicit CPU ``torch.Generator``, then moved to ``device``.  The JAX
+an explicit CPU ``torch.Generator``, then moved to ``device``.  Each
+takes ``pattern_static``, as the JAX package's do: False builds the same
+matrix as a dynamic container, its indices on ``device``.  The JAX
 package draws from a JAX key, so the same seed gives other matrices
 there: tests hand both packages one matrix through
 ``convert.from_arrays``.
@@ -66,25 +68,29 @@ def _values(generator, nnz: int, dtype, device):
     return torch.randn(nnz, generator=gen, dtype=draw).to(dtype).to(device)
 
 
-def _container(layout, rows, cols, values, shape, index_dtype):
+def _container(layout, rows, cols, values, shape, index_dtype,
+               pattern_static=True):
     """Container from row-major sorted ``rows``/``cols``, ``(nnz,)`` or
-    one pattern per batch element, ``(*batch, nnz)``."""
+    one pattern per batch element, ``(*batch, nnz)``; with
+    ``pattern_static=False`` the indices go to the values' device."""
     idt = np.dtype(index_dtype)
     if layout == "coo":
-        return SparseCOO(rows.astype(idt), cols.astype(idt), values, shape)
+        return SparseCOO(rows.astype(idt), cols.astype(idt), values, shape,
+                         pattern_static=pattern_static)
     if layout != "csr":
         raise ValueError(f"unknown layout {layout!r}")
     n = shape[-2]
     indptr = np.stack([np.concatenate([[0], np.cumsum(np.bincount(
         r, minlength=n))]) for r in rows.reshape(-1, rows.shape[-1])])
     indptr = indptr.reshape(rows.shape[:-1] + (n + 1,))
-    return SparseCSR(indptr.astype(idt), cols.astype(idt), values, shape)
+    return SparseCSR(indptr.astype(idt), cols.astype(idt), values, shape,
+                     pattern_static=pattern_static)
 
 
 def stencil_sparse(shape, offsets, *, nnz: int = None, layout: str = "csr",
                    dtype=torch.float32, index_dtype=np.int32,
                    well_conditioned: bool = False, generator=None,
-                   device="cuda"):
+                   device="cuda", pattern_static: bool = True):
     """Random-valued matrix on a stencil (union-of-diagonals) pattern.
 
     Args:
@@ -106,7 +112,7 @@ def stencil_sparse(shape, offsets, *, nnz: int = None, layout: str = "csr",
     if well_conditioned:
         vals = _boost_diagonal(rows, cols, vals, n)
     return _container(layout, rows, cols, vals.to(device), (n, m),
-                      index_dtype)
+                      index_dtype, pattern_static)
 
 
 def _region_capacity(n: int, m: int, region: str) -> int:
@@ -178,7 +184,7 @@ def _rand_pattern(rng, n: int, m: int, nnz: int, well_conditioned: bool):
 def rand_sparse(shape, nnz: int, *, layout: str = "coo", dtype=torch.float32,
                 index_dtype=np.int32, well_conditioned: bool = False,
                 shared_pattern: bool = False, generator=None, seed: int = 0,
-                device="cuda"):
+                device="cuda", pattern_static: bool = True):
     """Random matrix with exactly ``nnz`` distinct entries, uniform over
     the shape, in row-major order.
 
@@ -213,7 +219,7 @@ def rand_sparse(shape, nnz: int, *, layout: str = "coo", dtype=torch.float32,
         if n_pats > 1 else pats[0]
     values = torch.stack(vals).reshape(*batch, nnz).to(device)
     return _container(layout, rows, cols, values, (*batch, n, m),
-                      index_dtype)
+                      index_dtype, pattern_static)
 
 
 def _tri_pattern(rng, n: int, m: int, nnz: int, upper: bool, strict: bool):
@@ -237,7 +243,8 @@ def rand_sparse_tri(shape, nnz: int, *, upper: bool = False,
                     dtype=torch.float32, index_dtype=np.int32,
                     well_conditioned: bool = True,
                     shared_pattern: bool = False, generator=None,
-                    seed: int = 0, device="cuda"):
+                    seed: int = 0, device="cuda",
+                    pattern_static: bool = True):
     """Random triangular matrix with exactly ``nnz`` entries, row-major.
 
     Args:
@@ -272,13 +279,13 @@ def rand_sparse_tri(shape, nnz: int, *, upper: bool = False,
         if n_pats > 1 else pats[0]
     values = torch.stack(vals).reshape(*batch, nnz).to(device)
     return _container(layout, rows, cols, values, (*batch, n, m),
-                      index_dtype)
+                      index_dtype, pattern_static)
 
 
 def hybrid_sparse(shape, offsets, nnz: int, *, dia_coverage: float,
                   layout: str = "csr", dtype=torch.float32,
                   index_dtype=np.int32, generator=None, seed: int = 0,
-                  device="cuda"):
+                  device="cuda", pattern_static: bool = True):
     """Stencil-plus-residual matrix at a target DIA coverage.
 
     ``round(nnz * dia_coverage)`` entries lie on the stencil ``offsets``
@@ -317,7 +324,8 @@ def hybrid_sparse(shape, offsets, nnz: int, *, dia_coverage: float,
         order = np.lexsort((cols, rows))
         rows, cols = rows[order], cols[order]
     vals = _values(generator, len(rows), dtype, device)
-    return _container(layout, rows, cols, vals, (n, m), index_dtype)
+    return _container(layout, rows, cols, vals, (n, m), index_dtype,
+                      pattern_static)
 
 
 def _spd_values(rows, cols, half, pair, n):
@@ -347,7 +355,8 @@ def _mirror_pairs(rows, cols, n):
 
 def make_spd_sparse(n: int, nnz: int, *, layout: str = "coo",
                     dtype=torch.float32, index_dtype=np.int32, seed: int = 0,
-                    generator=None, device="cuda"):
+                    generator=None, device="cuda",
+                    pattern_static: bool = True):
     """Random sparse symmetric positive-definite matrix, row-major.
 
     The JAX package's rule: off-diagonal entries come in mirrored
@@ -378,12 +387,13 @@ def make_spd_sparse(n: int, nnz: int, *, layout: str = "coo",
                            np.arange(k_half)])[order]
     vals = _spd_values(rows, cols, half, pair, n)
     return _container(layout, rows, cols, vals.to(device), (n, n),
-                      index_dtype)
+                      index_dtype, pattern_static)
 
 
 def make_spd_stencil(n: int, offsets, *, nnz: int = None,
                      layout: str = "csr", dtype=torch.float32,
-                     index_dtype=np.int32, generator=None, device="cuda"):
+                     index_dtype=np.int32, generator=None, device="cuda",
+                     pattern_static: bool = True):
     """Symmetric positive-definite stencil matrix (cfd2-like), row-major.
 
     The offsets are symmetrised (±d and the main diagonal); mirrored
@@ -420,4 +430,4 @@ def make_spd_stencil(n: int, offsets, *, nnz: int = None,
     half = _values(generator, n_upper, dtype, "cpu") * 0.5
     vals = _spd_values(rows, cols, half, pair, n)
     return _container(layout, rows, cols, vals.to(device), (n, n),
-                      index_dtype)
+                      index_dtype, pattern_static)

@@ -12,9 +12,14 @@ Port of ``torchsparsegradutils_tpu/utils/structure.py``:
 * :func:`sparse_eye`;
 * :func:`sparse_stack` (the reference's ``stack_csr``, both layouts).
 
-Patterns are host numpy here, always (the JAX package's traced-pattern
-branch has no counterpart).  The value permutation of
-:func:`coo_to_csr` runs through the gather kernel
+Static patterns are host numpy.  A dynamic pattern (``pattern_static=
+False``) stays on its device, as the JAX package's traced branch does:
+:func:`coo_to_csr` sorts the int64 key ``row * m + col`` with a stable
+``torch.sort`` and builds ``indptr`` with ``torch.searchsorted``, with
+no host read; ``coalesce``, ``coo_to_csr_indices_values``,
+``sparse_block_diag_split`` and a per-element batched ``coo_to_csr``
+raise the JAX package's refusal instead.  The value permutation of
+:func:`coo_to_csr`, static or dynamic, runs through the gather kernel
 (``kernels/window_gather.py``, ``csrc/gather.cu`` on the card), whose
 backward is the same gather by the inverse permutation, not a
 scatter-add.
@@ -37,7 +42,8 @@ import numpy as np
 import torch
 
 from ..kernels.window_gather import WindowGather
-from ..types import SparseCOO, SparseCSR, StaticArray, is_sparse
+from ..types import (SparseCOO, SparseCSR, StaticArray, is_sparse,
+                     refuse_dynamic)
 
 __all__ = [
     "coo_to_csr",
@@ -70,9 +76,11 @@ def coo_to_csr_indices_values(coo: SparseCOO):
 
     The permutation maps the COO entry order to CSR order: ``values[...,
     perm]`` are the CSR values.  A per-element batched pattern gives one
-    of each per element, stacked.
+    of each per element, stacked.  A dynamic pattern refuses, as in the
+    JAX package.
     """
-    row, col = coo.rows(), coo.cols()
+    row = coo.rows_np("coo_to_csr conversion")
+    col = coo.cols_np("coo_to_csr conversion")
     n = coo.shape[-2]
     if row.ndim == 1:
         return _csr_of(row, col, n)
@@ -84,28 +92,74 @@ def coo_to_csr_indices_values(coo: SparseCOO):
             np.stack([p[2] for p in parts]).reshape(bshape + (coo.nnz,)))
 
 
-def _permute_values(values: torch.Tensor, perm: np.ndarray) -> torch.Tensor:
-    """``values[..., perm]``.  One-dimensional values and a shared
-    permutation go through the gather kernel, whose backward is the
-    gather by the inverse permutation; batched ones through
-    ``index_select`` / ``take_along_dim``."""
+def _permute_values(values: torch.Tensor, perm) -> torch.Tensor:
+    """``values[..., perm]``, ``perm`` host numpy or an int64 tensor on
+    the values' device.  One-dimensional values and a shared permutation
+    go through the gather kernel, whose backward is the gather by the
+    inverse permutation (made on the device by a scatter for a tensor);
+    batched ones through ``index_select`` / ``take_along_dim``."""
     dev = values.device
+    if isinstance(perm, np.ndarray):
+        if perm.ndim == 1:
+            perm_sa = StaticArray(perm.astype(np.int64))
+            if values.ndim == 1:
+                inv = np.empty_like(perm_sa.arr)
+                inv[perm_sa.arr] = np.arange(len(perm), dtype=np.int64)
+                return WindowGather.apply(values, perm_sa.on(dev),
+                                          StaticArray(inv).on(dev))
+            return values.index_select(-1, perm_sa.on(dev))
+        perm = torch.from_numpy(perm.astype(np.int64)).to(dev)
     if perm.ndim == 1:
-        perm_sa = StaticArray(perm.astype(np.int64))
         if values.ndim == 1:
-            inv = np.empty_like(perm_sa.arr)
-            inv[perm_sa.arr] = np.arange(len(perm), dtype=np.int64)
-            return WindowGather.apply(values, perm_sa.on(dev),
-                                      StaticArray(inv).on(dev))
-        return values.index_select(-1, perm_sa.on(dev))
-    idx = torch.from_numpy(perm.astype(np.int64)).to(dev)
-    return torch.take_along_dim(values, idx.expand(values.shape), -1)
+            inv = torch.empty_like(perm).scatter_(
+                0, perm, torch.arange(len(perm), device=dev))
+            return WindowGather.apply(values, perm, inv)
+        return values.index_select(-1, perm)
+    return torch.take_along_dim(values, perm.expand(values.shape), -1)
+
+
+def _sorted_order(row: torch.Tensor, col: torch.Tensor, m: int):
+    """Stable row-major order of a device pattern along its last axis
+    (the JAX package's ``lexsort((col, row))``), by the int64 key
+    ``row * m + col``, which cannot overflow."""
+    key = row.to(torch.int64) * m + col.to(torch.int64)
+    return torch.sort(key, dim=-1, stable=True).indices
+
+
+def sort_dynamic(coo: SparseCOO) -> SparseCOO:
+    """``coo.sort_indices()`` of a dynamic pattern, on its device."""
+    perm = _sorted_order(coo.row, coo.col, coo.shape[-1])
+    take = (lambda t: t.index_select(0, perm)) if perm.ndim == 1 else \
+        (lambda t: torch.take_along_dim(t, perm, -1))
+    return SparseCOO(take(coo.row), take(coo.col),
+                     _permute_values(coo.values, perm), coo.shape,
+                     pattern_static=False, _skip_checks=True)
+
+
+def _dynamic_coo_to_csr(coo: SparseCOO) -> SparseCSR:
+    """The JAX package's traced ``coo_to_csr``: a stable sort of the
+    pattern on its device, ``indptr`` by ``searchsorted`` over the sorted
+    rows, the values through the gather kernel; no host read."""
+    row, col = coo.row, coo.col
+    if row.ndim != 1:
+        raise ValueError("traced coo_to_csr supports unbatched patterns only")
+    n = coo.shape[-2]
+    perm = _sorted_order(row, col, coo.shape[-1])
+    row_s = row.index_select(0, perm)
+    bounds = torch.arange(n + 1, dtype=row.dtype, device=row.device)
+    indptr = torch.searchsorted(row_s, bounds,
+                                out_int32=row.dtype == torch.int32)
+    return SparseCSR(indptr, col.index_select(0, perm),
+                     _permute_values(coo.values, perm), coo.shape,
+                     pattern_static=False, _skip_checks=True)
 
 
 def coo_to_csr(coo: SparseCOO) -> SparseCSR:
     """Convert COO to CSR, the values permuted differentiably."""
     if not isinstance(coo, SparseCOO):
         raise TypeError(f"expected SparseCOO, got {type(coo)}")
+    if not coo.pattern_static:
+        return _dynamic_coo_to_csr(coo)
     indptr, col, perm = coo_to_csr_indices_values(coo)
     return SparseCSR(indptr, col, _permute_values(coo.values, perm),
                      coo.shape)
@@ -116,7 +170,8 @@ def csr_to_coo(csr: SparseCSR) -> SparseCOO:
 
 
 def csr_transpose(csr: SparseCSR) -> SparseCSR:
-    """Transpose a CSR matrix (pattern work on the host)."""
+    """Transpose a CSR matrix (pattern work on the host; on the device
+    for a dynamic pattern)."""
     return coo_to_csr(csr.tocoo().transpose())
 
 
@@ -124,9 +179,10 @@ def coalesce(coo: SparseCOO) -> SparseCOO:
     """Sum duplicate coordinates and sort row-major (a host pattern op).
 
     The deduplicated nnz becomes the new nnz; batched per-element
-    patterns must deduplicate to equal nnz.
+    patterns must deduplicate to equal nnz.  A dynamic pattern refuses,
+    as in the JAX package (the new nnz is a read of the pattern).
     """
-    row, col = coo.rows(), coo.cols()
+    row, col = coo.rows_np("coalesce"), coo.cols_np("coalesce")
     m = coo.shape[-1]
     if row.ndim == 1:
         keys = row.astype(np.int64) * m + col.astype(np.int64)
@@ -159,18 +215,35 @@ def coalesce(coo: SparseCOO) -> SparseCOO:
 # block diagonal
 # --------------------------------------------------------------------------
 
+def _pattern(sp, static: bool, what: str):
+    """A container's own index arrays: ``(row, col)`` or ``(indptr,
+    indices)``; host numpy when ``static`` (a dynamic pattern refuses,
+    naming ``what``), else tensors on the values' device."""
+    if static:
+        first = sp.rows_np(what) if sp.layout == "coo" else \
+            sp.indptr_np(what)
+        return first, sp.cols_np(what)
+    if sp.pattern_static:
+        return tuple(torch.from_numpy(np.array(a)).to(sp.device)
+                     for a in _pattern(sp, True, what))
+    if sp.layout == "coo":
+        return sp.row, sp.col
+    return sp.indptr, sp.indices
+
+
+def _cat(parts):
+    return torch.cat(parts) if isinstance(parts[0], torch.Tensor) else \
+        np.concatenate(parts)
+
+
 def _batch_slice(sp, i: int):
     """2-D slice i of a singly batched container."""
-    values = sp.values[i]
-    if sp.layout == "coo":
-        r, c = sp.rows(), sp.cols()
-        if r.ndim > 1:
-            r, c = r[i], c[i]
-        return SparseCOO(r, c, values, sp.shape[-2:])
-    ip, ix = sp.indptr_np(), sp.cols()
-    if ip.ndim > 1:
-        ip, ix = ip[i], ix[i]
-    return SparseCSR(ip, ix, values, sp.shape[-2:])
+    first, second = _pattern(sp, sp.pattern_static, "batch slicing")
+    if first.ndim > 1:
+        first, second = first[i], second[i]
+    cls = SparseCOO if sp.layout == "coo" else SparseCSR
+    return cls(first, second, sp.values[i], sp.shape[-2:],
+               pattern_static=sp.pattern_static)
 
 
 def sparse_block_diag(*mats: Union[SparseCOO, SparseCSR]):
@@ -186,28 +259,36 @@ def sparse_block_diag(*mats: Union[SparseCOO, SparseCSR]):
     layout = mats[0].layout
     if not all(m.layout == layout for m in mats):
         raise ValueError("all inputs must share a layout")
+    static = mats[0].pattern_static
     shape = (sum(m.shape[0] for m in mats), sum(m.shape[1] for m in mats))
     values = torch.cat([m.values for m in mats])
     r_offs = np.cumsum([0] + [m.shape[0] for m in mats])
     c_offs = np.cumsum([0] + [m.shape[1] for m in mats])
-    cols = np.concatenate([m.cols() + c for m, c in zip(mats, c_offs)])
+    pats = [_pattern(m, static, "sparse_block_diag") for m in mats]
+    if not static:
+        r_offs, c_offs = r_offs.tolist(), c_offs.tolist()
+    cols = _cat([p[1] + c for p, c in zip(pats, c_offs)])
     if layout == "coo":
-        rows = np.concatenate([m.rows() + r for m, r in zip(mats, r_offs)])
-        return SparseCOO(rows, cols, values, shape)
+        rows = _cat([p[0] + r for p, r in zip(pats, r_offs)])
+        return SparseCOO(rows, cols, values, shape, pattern_static=static)
     # CSR: row pointers joined with cumulative nnz offsets
     nnz_offs = np.cumsum([0] + [m.nnz for m in mats])
-    indptr = np.concatenate(
-        [mats[0].indptr_np()[:1]]
-        + [m.indptr_np()[1:] + o for m, o in zip(mats, nnz_offs)])
-    return SparseCSR(indptr, cols, values, shape)
+    nnz_offs = nnz_offs if static else nnz_offs.tolist()
+    indptr = _cat([pats[0][0][:1]]
+                  + [p[0][1:] + o for p, o in zip(pats, nnz_offs)])
+    return SparseCSR(indptr, cols, values, shape, pattern_static=static)
 
 
 def sparse_block_diag_split(sp, *shapes: Tuple[int, int]):
     """Split a block-diagonal sparse matrix back into blocks (the inverse
     of :func:`sparse_block_diag`).  The block shapes must tile the
-    diagonal; each block holds the entries that fall inside it."""
+    diagonal; each block holds the entries that fall inside it.  A
+    dynamic pattern refuses, as in the JAX package: each block's nnz is a
+    read of the pattern."""
     if not shapes:
         raise ValueError("provide at least one block shape")
+    if not sp.pattern_static:
+        refuse_dynamic("sparse_block_diag_split")
     out = []
     r_off = c_off = 0
     if sp.layout == "coo":
@@ -239,7 +320,8 @@ def sparse_block_diag_split(sp, *shapes: Tuple[int, int]):
 # --------------------------------------------------------------------------
 
 def sparse_eye(shape, *, layout: str = "coo", value_dtype=torch.float32,
-               index_dtype=np.int32, device="cuda"):
+               index_dtype=np.int32, device="cuda",
+               pattern_static: bool = True):
     """Sparse identity, optionally batched: ``shape`` is ``(*batch, n,
     n)``."""
     shape = tuple(int(s) for s in shape)
@@ -250,16 +332,20 @@ def sparse_eye(shape, *, layout: str = "coo", value_dtype=torch.float32,
     idx = np.arange(n, dtype=np.dtype(index_dtype))
     values = torch.ones(shape[:-2] + (n,), dtype=value_dtype, device=device)
     if layout == "coo":
-        return SparseCOO(idx, idx, values, shape)
+        return SparseCOO(idx, idx, values, shape,
+                         pattern_static=pattern_static)
     if layout == "csr":
         return SparseCSR(np.arange(n + 1, dtype=np.dtype(index_dtype)), idx,
-                         values, shape)
+                         values, shape, pattern_static=pattern_static)
     raise ValueError(f"unknown layout {layout!r}")
 
 
 def sparse_stack(mats: Sequence[Union[SparseCOO, SparseCSR]]):
     """Stack 2-D sparse matrices of equal layout, shape and nnz into one
-    batched container; equal patterns stay one shared pattern."""
+    batched container; equal patterns stay one shared pattern.  Dynamic
+    patterns are stacked on their device, one per element, and shared
+    only where every matrix holds the same index tensors (comparing
+    their contents would read them back)."""
     mats = list(mats)
     if not mats:
         raise ValueError("sparse_stack requires at least one matrix")
@@ -271,11 +357,17 @@ def sparse_stack(mats: Sequence[Union[SparseCOO, SparseCSR]]):
         raise ValueError("sparse_stack stacks 2-D matrices")
     values = torch.stack([m.values for m in mats])
     new_shape = (len(mats),) + shape
-    first = np.stack([m.rows() if layout == "coo" else m.indptr_np()
-                      for m in mats])
-    cols = np.stack([m.cols() for m in mats])
-    if (first == first[0]).all() and (cols == cols[0]).all():
-        first, cols = first[0], cols[0]
-    if layout == "coo":
-        return SparseCOO(first, cols, values, new_shape)
-    return SparseCSR(first, cols, values, new_shape)
+    static = mats[0].pattern_static
+    pats = [_pattern(m, static, "sparse_stack") for m in mats]
+    if static:
+        first = np.stack([p[0] for p in pats])
+        cols = np.stack([p[1] for p in pats])
+        if (first == first[0]).all() and (cols == cols[0]).all():
+            first, cols = first[0], cols[0]
+    elif all(p[0] is pats[0][0] and p[1] is pats[0][1] for p in pats):
+        first, cols = pats[0]
+    else:
+        first = torch.stack([p[0] for p in pats])
+        cols = torch.stack([p[1] for p in pats])
+    cls = SparseCOO if layout == "coo" else SparseCSR
+    return cls(first, cols, values, new_shape, pattern_static=static)
